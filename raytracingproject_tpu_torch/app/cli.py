@@ -2,9 +2,13 @@
 
   python -m raytracingproject_tpu_torch example:cornell:glossy \\
       --samples 64 --width 512 --height 512 --device cuda --output out.png
+  python -m raytracingproject_tpu_torch example:volume_sss \\
+      --samples 32 --width 256 --height 256 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
+example:volume_sss renders with its pinned dispatch
+(examples.VOLUME_SSS_DISPATCH: K4 walk, K3 occlusion).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ def build_parser():
     p = argparse.ArgumentParser(
         prog="raytracingproject_tpu_torch",
         description="PyTorch/CUDA port of the path tracer")
-    p.add_argument("scene", help="'example:cornell[:variant]'")
+    p.add_argument("scene",
+                   help="'example:cornell[:variant]' | 'example:volume_sss'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -34,11 +39,16 @@ def build_parser():
 
 
 def load_scene(spec):
+    """(scene, kernel-globals flags) for an example scene spec."""
     from raytracingproject_tpu_torch.app import examples
     parts = spec.split(":")
+    if parts == ["example", "volume_sss"]:
+        return examples.volume_sss_scene(), examples.VOLUME_SSS_DISPATCH
     if len(parts) < 2 or parts[0] != "example" or parts[1] != "cornell":
-        raise SystemExit(f"unknown scene '{spec}' (try example:cornell)")
-    return examples.cornell_box(spheres=parts[2] if len(parts) > 2 else None)
+        raise SystemExit(f"unknown scene '{spec}' (try example:cornell or "
+                         "example:volume_sss)")
+    return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
+                                 else None), {})
 
 
 def run(args):
@@ -46,7 +56,7 @@ def run(args):
     from raytracingproject_tpu_torch.device import get_device
     from raytracingproject_tpu_torch.session.session import render
     dev = get_device(args.device)
-    scene = load_scene(args.scene)
+    scene, flags = load_scene(args.scene)
     if args.width:
         scene.camera.set("width", args.width)
     if args.height:
@@ -55,6 +65,7 @@ def run(args):
     t0 = time.perf_counter()
     scene.device_update()
     kg = scene.make_kernel_globals(dev)
+    kg.update(flags)
     t1 = time.perf_counter()
     img = render(scene, samples, chunk=args.chunk, device=dev,
                  lanes_per_pixel=args.lanes_per_pixel, kg=kg)
@@ -70,7 +81,7 @@ def run(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     img, st = run(args)
-    from raytracingproject_tpu.utils import image_io
+    from raytracingproject_tpu_torch.utils import image_io
     image_io.write_png(args.output, img)
     if not args.quiet:
         dev = (torch.cuda.get_device_name(0) if args.device.startswith("cuda")

@@ -1,9 +1,18 @@
 """Example scenes (JAX counterpart: raytracingproject_tpu/app/examples.py).
 
-`cornell_box` builds the same scene as the JAX package, object for
-object and shader for shader, so both host compiles produce the same
-tables. Variants that need unported features (glass spheres, an area
-lamp) raise NotImplementedError.
+Each scene is built as the JAX package builds it, object for object and
+shader for shader, so both host compiles produce the same tables:
+`cornell_box` (the glossy_nee_mis configuration with spheres="glossy")
+and `volume_sss_scene` (the volume_sss configuration: a homogeneous
+smoke box and a random-walk SSS sphere in the Cornell box). Variants that
+need unported features (glass spheres, an area lamp) raise
+NotImplementedError.
+
+VOLUME_SSS_DISPATCH holds the intersection flags the volume_sss
+configuration renders with (kg.update(VOLUME_SSS_DISPATCH) after
+make_kernel_globals): its 1,008 prims would select the dense sweep, and
+the JAX package's benchmark pins the tile-shared cluster walk (K4) and
+the occlusion walk (K3) for it instead.
 """
 
 from __future__ import annotations
@@ -102,4 +111,60 @@ def cornell_box(width=256, height=256, spp=64, light_mode="mesh",
 
     scene.integrator.set("aa_samples", spp)
     scene.integrator.set("max_bounce", 4)
+    return scene
+
+
+def volume_shader(name, color=(0.8, 0.8, 0.8), density=1.0, anisotropy=0.0,
+                  absorption=(1.0, 1.0, 1.0)):
+    """Volume-only material (its surface is a transparent boundary)."""
+    g = ShaderGraph()
+    v = g.add(sn.PrincipledVolumeNode(
+        name + "_vol", color=color, density=density, anisotropy=anisotropy,
+        absorption_color=absorption))
+    g.connect(v, "volume", g.output_node, "volume")
+    return Shader(name, g)
+
+
+def smoke_cornell(width=128, height=128, spp=32, density=0.01,
+                  anisotropy=0.3):
+    """Cornell box with a homogeneous scattering medium filling a box."""
+    scene = cornell_box(width, height, spp)
+    vol = volume_shader("smoke", color=(0.8, 0.8, 0.8), density=density,
+                        anisotropy=anisotropy)
+    scene.add_shader(vol)
+    box = make_box_mesh((100, 100, 50), (456, 456, 400), 0, "smoke_box")
+    box.used_shaders = [vol]
+    scene.add_object(Object("smoke", box))
+    scene.integrator.set("max_bounce", 6)
+    scene.integrator.set("volume_samples", 1)
+    return scene
+
+
+def sss_shader(name, color=(0.9, 0.3, 0.2), radius=(10.0, 5.0, 3.0),
+               scale=1.0):
+    g = ShaderGraph()
+    s = g.add(sn.SubsurfaceScatteringNode(
+        name + "_sss", color=color, radius=radius, scale=scale))
+    g.connect(s, "bssrdf", g.output_node, "surface")
+    return Shader(name, g)
+
+
+VOLUME_SSS_DISPATCH = {"use_brute": False, "pallas_clusters": True,
+                       "pallas_onehot": False, "pallas_occlusion": True}
+
+
+def volume_sss_scene(width=256, height=256, spp=32, density=0.004):
+    """The volume_sss configuration: homogeneous smoke in a box and a
+    random-walk SSS sphere in one Cornell box (1,008 prims)."""
+    scene = smoke_cornell(width, height, spp, density=density)
+    mat = sss_shader("wax", color=(0.8, 0.5, 0.3),
+                     radius=(40.0, 20.0, 10.0))
+    scene.add_shader(mat)
+    s1 = make_sphere_mesh((430, 120, 100), 100, 0, nlat=16, nlon=32,
+                          name="sss_sphere")
+    s1.set("smooth", np.ones(s1.num_triangles, bool))
+    s1.used_shaders = [mat]
+    scene.add_object(Object("sss_sphere", s1))
+    scene.integrator.set("max_bounce", 8)
+    scene.integrator.set("max_transmission_bounce", 16)
     return scene

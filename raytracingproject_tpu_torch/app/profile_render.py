@@ -1,21 +1,25 @@
 """Where the render's time goes on the card.
 
     python -m raytracingproject_tpu_torch.app.profile_render \\
-        [--device cuda] [--out chiprun_out/profile_glossy.json]
+        [--scene glossy|volume_sss] [--device cuda] \\
+        [--out profile.json]
 
-Renders the glossy Cornell box (example:cornell:glossy) at 512x512, one
-lane per pixel (the full-width cell of chip_smoke.py), chunk by chunk
-through ops/integrator.py render_samples_regen:
+Renders one configuration of chip_smoke.py at its full width, one lane
+per pixel, chunk by chunk through ops/integrator.py
+render_samples_regen: `glossy` is the glossy Cornell box
+(example:cornell:glossy) at 512x512 through K2 and K3; `volume_sss` is
+example:volume_sss at 256x256 with its pinned dispatch
+(examples.VOLUME_SSS_DISPATCH) through K4 and K3's dual form.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
-   synchronize: wavefront iterations (K2 launches; the integrator makes one
-   closest-hit walk per iteration) and ms per iteration;
+   synchronize: wavefront iterations (launches of the closest-hit walk; the
+   integrator makes one per iteration) and ms per iteration;
 3. one chunk of 4 samples under torch.profiler (CPU and CUDA
    activities). From the device events of key_averages(): device kernels
    per iteration, device busy time, the device idle share (1 - busy / wall
-   time of the profiled chunk), the per-call device time of K2 and K3 in
-   the render, and the device kernels that take the most time.
+   time of the profiled chunk), the per-call device time of the walk and
+   of K3 in the render, and the device kernels that take the most time.
 
 Prints one JSON object as its last line, and writes it to --out if given.
 On a CPU device the walks take their plain versions and launch no kernel,
@@ -32,15 +36,22 @@ import time
 
 import torch
 
-K2_KERNEL = "cluster_walk_kernel"
 K3_KERNEL = "occlusion_walk_kernel"
 TOP = 12   # device kernels listed, by total time
+# scene -> (example spec, width, closest-hit walk module, its kernel name)
+SCENES = {
+    "glossy": ("example:cornell:glossy", 512, "cluster_walk",
+               "cluster_walk_kernel"),
+    "volume_sss": ("example:volume_sss", 256, "tile_walk",
+                   "tile_walk_kernel"),
+}
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="raytracingproject_tpu_torch.app.profile_render",
-        description="profile one chunk of the glossy Cornell box render")
+        description="profile one chunk of a full-width render")
+    p.add_argument("--scene", default="glossy", choices=sorted(SCENES))
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--out", default=None, help="also write the JSON here")
     return p
@@ -59,25 +70,33 @@ def _device_events(prof):
             if e.device_type != DeviceType.CPU]
 
 
-def profile(width=512, spp=16, profile_spp=4, device="cuda"):
+def profile(scene="glossy", width=None, spp=16, profile_spp=4,
+            device="cuda"):
     """Run the three phases (host-clocked chunk of `spp` samples, warm-up
     and profiled chunks of `profile_spp`); returns the findings."""
-    from raytracingproject_tpu_torch.app import examples
+    import importlib
+    from raytracingproject_tpu_torch.app import cli
     from raytracingproject_tpu_torch.device import get_device
-    from raytracingproject_tpu_torch.ops import cluster_walk as k2
     from raytracingproject_tpu_torch.ops import integrator as integ
     from raytracingproject_tpu_torch.session.session import pixel_wavefront
+    spec, full_width, walk_name, walk_kernel = SCENES[scene]
+    walk = importlib.import_module(
+        f"raytracingproject_tpu_torch.ops.{walk_name}")
+    width = width or full_width
     dev = get_device(device)
-    scene = examples.cornell_box(width, width, spp=spp, spheres="glossy")
-    scene.device_update()
-    kg = scene.make_kernel_globals(dev)
+    sc, flags = cli.load_scene(spec)
+    sc.camera.set("width", width)
+    sc.camera.set("height", width)
+    sc.device_update()
+    kg = sc.make_kernel_globals(dev)
+    kg.update(flags)
     px, py, pidx = pixel_wavefront(width, width, 1, dev)
 
     def chunk(start, n):
-        before = k2.launches
+        before = walk.launches
         integ.render_samples_regen(kg, px, py, pidx, start, n)
         _sync(dev)
-        return k2.launches - before
+        return walk.launches - before
 
     # ---- 1. warm-up ----
     chunk(0, profile_spp)
@@ -86,7 +105,7 @@ def profile(width=512, spp=16, profile_spp=4, device="cuda"):
     t0 = time.perf_counter()
     iters = chunk(0, spp)
     wall = time.perf_counter() - t0
-    out = {"scene": "example:cornell:glossy", "width": width,
+    out = {"scene": spec, "width": width,
            "lanes": width * width, "device": str(dev),
            "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                     else "cpu"),
@@ -107,38 +126,43 @@ def profile(width=512, spp=16, profile_spp=4, device="cuda"):
     if not events:
         out.update({"device_busy_s": None, "device_idle_share": None,
                     "device_kernels_per_iteration": None,
-                    "k2_ms_per_call": None, "k3_ms_per_call": None,
+                    "walk_ms_per_call": None, "k3_ms_per_call": None,
+                    "k3_calls_per_iteration": None,
                     "top_kernels": []})
         return out
     busy_us = sum(t for _n, _c, t in events)
     calls = sum(c for _n, c, _t in events)
 
-    def per_call_ms(name):
+    def per_call(name):
+        """(calls, device ms per call) of the kernels named `name`."""
         hit = [(c, t) for n, c, t in events if name in n]
         c = sum(c for c, _t in hit)
-        return (sum(t for _c, t in hit) / c / 1e3) if c else None
+        return c, ((sum(t for _c, t in hit) / c / 1e3) if c else None)
 
     events.sort(key=lambda e: -e[2])
     out.update({
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / p_wall,
         "device_kernels_per_iteration": (calls / p_iters) if p_iters else None,
-        "k2_ms_per_call": per_call_ms(K2_KERNEL),
-        "k3_ms_per_call": per_call_ms(K3_KERNEL),
-        "k2_k3_share_of_iteration": None,
+        "walk_kernel": walk_kernel,
+        "walk_ms_per_call": per_call(walk_kernel)[1],
+        "k3_ms_per_call": per_call(K3_KERNEL)[1],
+        "k3_calls_per_iteration": (per_call(K3_KERNEL)[0] / p_iters
+                                   if p_iters else None),
+        "walk_k3_share_of_iteration": None,
         "top_kernels": [{"name": n[:120], "calls": c, "ms": t / 1e3}
                         for n, c, t in events[:TOP]]})
-    if out["ms_per_iteration"] and out["k2_ms_per_call"] \
+    if out["ms_per_iteration"] and out["walk_ms_per_call"] \
             and out["k3_ms_per_call"]:
-        out["k2_k3_share_of_iteration"] = (
-            (out["k2_ms_per_call"] + out["k3_ms_per_call"])
-            / out["ms_per_iteration"])
+        out["walk_k3_share_of_iteration"] = (
+            (out["walk_ms_per_call"] + out["k3_ms_per_call"]
+             * out["k3_calls_per_iteration"]) / out["ms_per_iteration"])
     return out
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    out = profile(device=args.device)
+    out = profile(args.scene, device=args.device)
     line = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -62,17 +62,15 @@ static __device__ __forceinline__ void wt_shear(const WtRay& w, float vx,
     *z = w.rz0 * vx + w.rz1 * vy + w.rz2 * vz - w.rzo;
 }
 
-// One triangle from a cluster row: tri = [v0(3), e1(3), e2(3)]. Returns
-// whether it is hit inside (tmin, tmax), with t and the v1/v2 weights u, v.
-static __device__ __forceinline__ bool wt_tri(const WtRay& w,
-                                              const float* __restrict__ tri,
-                                              float tmin, float tmax, float* t,
-                                              float* u, float* v) {
-    const float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1), v0z = __ldg(tri + 2);
-    const float v1x = v0x + __ldg(tri + 3), v1y = v0y + __ldg(tri + 4),
-                v1z = v0z + __ldg(tri + 5);
-    const float v2x = v0x + __ldg(tri + 6), v2y = v0y + __ldg(tri + 7),
-                v2z = v0z + __ldg(tri + 8);
+// One triangle given as v0 and the edges e1 = v1 - v0, e2 = v2 - v0 (a
+// cluster row's layout). Returns whether it is hit inside (tmin, tmax),
+// with t and the v1/v2 weights u, v.
+static __device__ __forceinline__ bool wt_tri_v(
+    const WtRay& w, float v0x, float v0y, float v0z, float e1x, float e1y,
+    float e1z, float e2x, float e2y, float e2z, float tmin, float tmax,
+    float* t, float* u, float* v) {
+    const float v1x = v0x + e1x, v1y = v0y + e1y, v1z = v0z + e1z;
+    const float v2x = v0x + e2x, v2y = v0y + e2y, v2z = v0z + e2z;
     float ax, ay, az, bx, by, bz, cx, cy, cz;
     wt_shear(w, v0x, v0y, v0z, &ax, &ay, &az);
     wt_shear(w, v1x, v1y, v1z, &bx, &by, &bz);
@@ -95,6 +93,18 @@ static __device__ __forceinline__ bool wt_tri(const WtRay& w,
     *u = fminf(fmaxf(w_b * inv, 0.0f), 1.0f);
     *v = fminf(fmaxf(w_c * inv, 0.0f), 1.0f);
     return sign_ok && det_ok && tt > tmin && tt < tmax && !w.degenerate;
+}
+
+// wt_tri_v on tri = [v0(3), e1(3), e2(3)] in global memory (a row of the
+// cluster table, read through the read-only path).
+static __device__ __forceinline__ bool wt_tri(const WtRay& w,
+                                              const float* __restrict__ tri,
+                                              float tmin, float tmax, float* t,
+                                              float* u, float* v) {
+    return wt_tri_v(w, __ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
+                    __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
+                    __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8), tmin, tmax,
+                    t, u, v);
 }
 
 static __device__ __forceinline__ float safe_inv(float d) {

@@ -1,18 +1,18 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
-All sources go through one nvcc call into a shared library with a plain
-C interface, loaded with ctypes:
+Each source goes through its own nvcc call into a shared library with a
+plain C interface, loaded with ctypes; the calls run in parallel:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -fmad=false -o build/torch_kernels/<hash>.so
-         csrc/*.cu
+         -Xcompiler -fPIC -fmad=false -o build/torch_kernels/<name>_<hash>.so
+         csrc/<name>.cu
 
-The library is built at first use into build/torch_kernels/ under the
-repository root, named by a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses it. -fmad=false keeps every
-multiply and add separate, so the kernels round like the plain torch
-versions they are tested against. Each C entry point launches on the
-stream it is given and returns cudaGetLastError().
+The libraries are built at first use into build/torch_kernels/ under the
+repository root, each named by a hash of its source, the shared headers
+and the flags, so an edit rebuilds and an unchanged tree reuses them.
+-fmad=false keeps every multiply and add separate, so the kernels round
+like the plain torch versions they are tested against. Each C entry point
+launches on the stream it is given and returns cudaGetLastError().
 """
 
 from __future__ import annotations
@@ -34,19 +34,31 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# closest-hit walks: cbounds ctable C W ct o d tmin tmax vis n any_hit
+# t prim u v obj stream
+_WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+         _P, _P, _P, _P, _P, _P]
+# source -> {C entry point: argtypes}
 SIGNATURES = {
-    # cbounds ctable C W ct o d tmin tmax vis n any_hit t prim u v obj stream
-    "rt_cluster_walk": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _P, _P, _P, _P, _P, _P],
+    "cluster_walk.cu": {"rt_cluster_walk": _WALK},
     # cbounds ctable cboundary C W ct o d tmin tmaxc tmaxa n vis_c vis_a
     # tb to blocked stream
-    "rt_occlusion_walk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _P, _P, _P, _P],
+    "occlusion_walk.cu": {"rt_occlusion_walk": [
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+        _P]},
+    "tile_walk.cu": {"rt_tile_walk": _WALK},
 }
 
 _lib = None
 _lock = threading.Lock()
-build_info = {}   # seconds, path, ptxas log of the last build
+build_info = {}   # wall seconds, paths, ptxas log of the last build
+
+
+class _Kernels:
+    """The C entry points of every loaded library, as attributes."""
+
+    def __init__(self, fns):
+        self.__dict__.update(fns)
 
 
 def nvcc_path():
@@ -66,43 +78,64 @@ def sources():
                   if f.endswith((".cu", ".cuh")))
 
 
-def build():
-    """Compile csrc/*.cu into the shared library (if not built yet) and
-    return its path."""
+def _out_path(cu, headers):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources():
+    for s in headers + [cu]:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
-    out = os.path.join(BUILD_DIR, f"rt_kernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        build_info.update(path=out, seconds=0.0, log="(cached)")
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cus = [s for s in sources() if s.endswith(".cu")]
+    name = os.path.basename(cu)[:-3]
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile every csrc/*.cu not built yet, all nvcc calls at once;
+    returns {source file name: library path}."""
+    srcs = sources()
+    headers = [s for s in srcs if s.endswith(".cuh")]
+    outs = {os.path.basename(cu): _out_path(cu, headers)
+            for cu in srcs if cu.endswith(".cu")}
+    todo = {k: p for k, p in outs.items() if not os.path.exists(p)}
     t0 = time.perf_counter()
-    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cus],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n"
-                           f"{r.stderr}")
-    os.replace(tmp, out)
-    build_info.update(path=out, seconds=time.perf_counter() - t0,
-                      log=r.stdout + r.stderr)
-    return out
+    logs = []
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        for name, out in todo.items():
+            tmp = f"{out}.{os.getpid()}.tmp"
+            procs[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, name)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, out)
+        failed = []
+        for name, (p, tmp, out) in procs.items():
+            log = p.communicate()[0]
+            logs.append(f"== {name}\n{log}")
+            if p.returncode != 0:
+                failed.append(f"{name} ({p.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    build_info.update(paths=outs, seconds=time.perf_counter() - t0,
+                      built=sorted(todo), log="\n".join(logs) or "(cached)")
+    return outs
 
 
 def load():
-    """The loaded kernel library (building it on first use)."""
+    """The loaded kernels (building them on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            fns = {}
+            for name, path in build().items():
+                lib = ctypes.CDLL(path)
+                for fn_name, argtypes in SIGNATURES.get(name, {}).items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[fn_name] = fn
+            _lib = _Kernels(fns)
     return _lib
 
 

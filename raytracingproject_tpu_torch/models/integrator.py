@@ -1,7 +1,10 @@
 """Integrator settings (JAX counterpart:
 raytracingproject_tpu/models/integrator.py). `kernel_record` gives the
-same `kint` dict as the JAX package; the integrator raises on settings
-this slice does not carry (branched path, other sampling patterns)."""
+same `kint` dict as the JAX package (the volume knobs volume_max_steps,
+volume_step_rate and max_volume_bounce included; volume_stack_depth goes
+to the kernel globals, as in the JAX package); the integrator raises on
+settings the port does not carry (branched path, other sampling
+patterns)."""
 
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ class Integrator(Node):
         S("ao_distance", S.FLOAT, 1e10),
         S("volume_max_steps", S.INT, 1024),
         S("volume_step_rate", S.FLOAT, 1.0),
+        S("volume_samples", S.INT, 1),
+        S("volume_stack_depth", S.INT, 4),
         S("caustics_reflective", S.BOOLEAN, True),
         S("caustics_refractive", S.BOOLEAN, True),
         S("filter_glossy", S.FLOAT, 0.0),

@@ -3,15 +3,21 @@ raytracingproject_tpu/models/scene.py `Scene.device_update` +
 `make_kernel_globals`).
 
 The card has no JAX, so the port owns its host compile. It is numpy
-only and covers this slice: static single-user meshes baked to world
-space, the SAH BVH build and cluster cut (the JAX package's jax-free
-`bvh.build` / `bvh.clusters`; `native` holds its C++ SAH build), the
-cluster tables, the wide prim/object tables, and the all-triangle mesh
-light distribution. Every array is built with the same numpy operations
-in the same order as the JAX package, so the tables come out
-bit-identical (tests/test_torch_scene.py). Instancing, motion, hair,
-subdivision, displacement, lamps, background maps and the light tree
-raise NotImplementedError.
+only and covers the port's scenes: static single-user meshes baked to
+world space, the SAH BVH build and cluster cut (the port's own
+bvh/build.py and bvh/clusters.py), the cluster tables, the wide
+prim/object tables, the all-triangle mesh light distribution, and for
+volume scenes the volume-boundary tables (prim_is_boundary,
+cluster_boundary), the per-shader volume lists and shadow-invisible
+volume-only objects. Every array is built with the same numpy
+operations in the same order as the JAX package, so the tables come out
+bit-identical (tests/test_torch_scene.py,
+tests/test_torch_volume_render.py). Instancing, motion, hair,
+subdivision, displacement, lamps, background maps, the light tree and
+scenes of 2,048 prims or more (the JAX package's C++ BVH builder) raise
+NotImplementedError. A scene of at most 1,024 prims records use_brute
+(the JAX package's dense-sweep choice) but still packs its clusters; only
+the dense dispatch itself raises.
 
 `make_kernel_globals(device)` returns the `KernelGlobals` dict: arrays
 as torch tensors on `device` under "dscene", statics under the JAX key
@@ -24,14 +30,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracingproject_tpu.bvh import build as bvh_build
-from raytracingproject_tpu.bvh import clusters as cl_mod
+from raytracingproject_tpu_torch.bvh import build as bvh_build
+from raytracingproject_tpu_torch.bvh import clusters as cl_mod
 from raytracingproject_tpu_torch.models import shader_nodes as sn
 from raytracingproject_tpu_torch.models.camera import Camera
 from raytracingproject_tpu_torch.models.film import Film
 from raytracingproject_tpu_torch.models.integrator import Integrator
 from raytracingproject_tpu_torch.models.object import (
-    PATH_RAY_ALL_VISIBILITY)
+    PATH_RAY_ALL_VISIBILITY, PATH_RAY_SHADOW)
 from raytracingproject_tpu_torch.models.shader import Shader, ShaderGraph
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import lookup as lk
@@ -44,11 +50,11 @@ BRUTE_VS_CLUSTER_PRIMS = 1024
 CLUSTER_MAX_SINGLE_LEVEL = 640
 AUTO_FLATTEN_MAX_PRIMS = 16384
 
-# kernel-globals arrays this slice's render reads (+ the K3 table)
+# kernel-globals arrays the port's render reads
 KG_ARRAYS = ("prim_table", "object_table", "cluster_bounds",
-             "cluster_table", "cluster_boundary", "light_dist_type",
-             "light_dist_cdf", "light_entries", "le_prim_rows",
-             "le_obj_rows", "bg_pmf")
+             "cluster_table", "cluster_boundary", "prim_is_boundary",
+             "light_dist_type", "light_dist_cdf", "light_entries",
+             "le_prim_rows", "le_obj_rows", "bg_pmf")
 
 
 def default_surface_shader():
@@ -116,8 +122,10 @@ class Scene:
         lightd = self._pack_lights(packed)
         arrays = dict(packed)
         arrays.update(lightd)
-        arrays["cluster_boundary"] = _cluster_boundary(
-            arrays["cluster_table"], packed["__cluster_tris__"])
+        arrays["prim_is_boundary"], arrays["cluster_boundary"] = \
+            _boundary_tables(self.shaders, arrays["prim_table"],
+                             arrays["cluster_table"],
+                             packed["__cluster_tris__"])
         self.dscene = {
             "arrays": {k: arrays[k] for k in KG_ARRAYS},
             "cam": self.camera.update(),
@@ -129,6 +137,7 @@ class Scene:
             "use_brute": packed["__use_brute__"],
             "cluster_tris": packed["__cluster_tris__"],
             "light_kinds": lightd["__light_kinds__"],
+            "volume_stack_depth": int(self.integrator.volume_stack_depth),
         }
         return self.dscene
 
@@ -217,7 +226,12 @@ class Scene:
                 np.asarray(obj.transform, np.float32))
             obj_color[oi] = np.asarray(obj.color, np.float32)
             obj_random[oi] = (obj.random_id & 0xFFFF) / 65535.0
-            obj_visibility[oi] = np.uint32(obj.visibility)
+            vis = np.uint32(obj.visibility)
+            # volume-only boundaries never block shadow rays
+            if all(s.volume_only for s in (obj.geometry.used_shaders
+                                           or [self.default_surface])):
+                vis &= ~np.uint32(PATH_RAY_SHADOW)
+            obj_visibility[oi] = vis
             obj_flags[oi] = np.uint32(obj.flags())
             obj_blo[oi], obj_bhi[oi] = obj.geometry.compute_bounds()
 
@@ -248,9 +262,6 @@ class Scene:
         packed["cluster_table"] = ctab
         packed["__cluster_tris__"] = ct_used
         packed["__use_brute__"] = P <= BRUTE_VS_CLUSTER_PRIMS
-        if packed["__use_brute__"]:
-            raise NotImplementedError(
-                f"{P} prims: the dense sweep (K1) path is not ported")
 
         # ---- wide lookup tables (ops/lookup.py layout) ----
         pt = np.zeros((P, lk.PT_COLS), np.float32)
@@ -283,6 +294,7 @@ class Scene:
             if sh not in self.shaders:
                 self.add_shader(sh)
                 sh.slot = self.shaders.index(sh)
+                sh.analyze()
             return self.shaders.index(sh)
         return self.default_surface.slot
 
@@ -359,16 +371,54 @@ class Scene:
         return _assemble_kg(ds["arrays"], ds, self.shaders, device)
 
 
-def _cluster_boundary(ctab, ct):
-    """(C, ct) 0/1 flags of volume-boundary prims per cluster slot. This
-    slice has no volume shaders, so every slot is 0; the table exists
-    because K3 takes it."""
-    return np.zeros((ctab.shape[0], ct), np.float32)
+def _boundary_tables(shaders, prim_table, ctab, ct):
+    """Volume-boundary flags: (P,) bool per prim (its shader has a
+    volume closure) and (C, ct) 0/1 float per cluster slot, the table
+    K3's dual form splits its two minima by. All zero without volume
+    shaders."""
+    shv = np.array([bool(s.has_volume) for s in shaders] or [False])
+    pshader = np.clip(prim_table[:, lk.PT_SHADER].astype(np.int64), 0,
+                      len(shv) - 1)
+    prim_bnd = shv[pshader]
+    pb = ci.META_COLS + 9 * ct
+    pids = ctab[:, pb:pb + ct].astype(np.int64)
+    bnd = np.where(pids >= 0,
+                   prim_bnd[np.clip(pids, 0, len(prim_bnd) - 1)], False)
+    return prim_bnd, bnd.astype(np.float32)
+
+
+def shader_statics(shaders):
+    """Per-shader lists and scene features the integrator reads, under
+    the JAX package's key names (models/scene.py make_kernel_globals)."""
+    return {
+        "shader_has_volume": [bool(s.has_volume) for s in shaders],
+        "shader_volume_only": [bool(s.volume_only) for s in shaders],
+        "shader_het_volume": [bool(s.has_heterogeneous_volume)
+                              for s in shaders],
+        # delta-tracking majorants: zero, as for every homogeneous medium
+        "shader_sigma_max": np.zeros(max(len(shaders), 1), np.float32),
+        "shader_vol_sampling": [s.get_enum_int("volume_sampling_method")
+                                if s.has_volume else 0 for s in shaders],
+        # no port node makes a surface shadow-transparent
+        "shader_shadow_transparent": [False] * len(shaders),
+        "features": {
+            "has_glossy": any(s.has_glossy for s in shaders),
+            "has_emission": any(s.has_surface_emission for s in shaders),
+            # volume-only boundaries pass through as transparent
+            "has_transparent": any(s.volume_only for s in shaders),
+            "has_volume": any(s.has_volume for s in shaders),
+            "has_subsurface": any(s.has_subsurface for s in shaders),
+            "has_heterogeneous": any(s.has_heterogeneous_volume
+                                     for s in shaders),
+            "has_equiangular": any(
+                s.has_volume
+                and s.get_enum_int("volume_sampling_method") != 0
+                for s in shaders),
+        },
+    }
 
 
 def _assemble_kg(arrays, ds, shaders, device):
-    feats = {"has_glossy": any(s.has_glossy for s in shaders),
-             "has_emission": any(s.has_surface_emission for s in shaders)}
     return {
         "dscene": {k: torch.tensor(np.array(arrays[k]), device=device)
                    for k in KG_ARRAYS},
@@ -387,7 +437,8 @@ def _assemble_kg(arrays, ds, shaders, device):
         "lamp_types": [],
         "light_tree": None,
         "light_kinds": ds["light_kinds"],
-        "features": feats,
+        "volume_stack_depth": int(ds["volume_stack_depth"]),
+        **shader_statics(shaders),
     }
 
 
@@ -440,6 +491,8 @@ def _convert_shader(jshader):
         g.links[(id(nodes[to_id]), to_sock)] = (nodes[id(jfrom)],
                                                 from_sock)
     sh = Shader(jshader.name, g)
+    for sname in Shader._socket_map:
+        sh.set(sname, getattr(jshader, sname))
     sh.slot = jshader.slot
     return sh.analyze()
 
@@ -459,6 +512,7 @@ def kg_from_jax(kg_jax, device):
           "background_shader": kg_jax["background_shader"],
           "use_brute": kg_jax["use_brute"],
           "cluster_tris": kg_jax["cluster_tris"],
-          "light_kinds": kg_jax["light_kinds"]}
+          "light_kinds": kg_jax["light_kinds"],
+          "volume_stack_depth": kg_jax["volume_stack_depth"]}
     shaders = [_convert_shader(s) for s in kg_jax["shaders"]]
     return _assemble_kg(arrays, ds, shaders, device)

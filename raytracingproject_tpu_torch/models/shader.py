@@ -5,7 +5,9 @@ it in topological order and calls each node's torch eval from the
 registry in models/shader_nodes.py, keyed by node class name — so a
 graph converted from the JAX package (models/scene.py kg_from_jax)
 evaluates through the same registry. A node class outside the registry
-raises NotImplementedError.
+raises NotImplementedError. The output node's surface socket gives the
+surface closures and its volume socket the volume closures; a linked
+displacement socket raises.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ class ShaderNode(Node):
             if itype == "closure":
                 continue
             st = {"float": S.FLOAT, "color": S.COLOR,
-                  "normal": S.NORMAL}[itype]
+                  "vector": S.VECTOR, "normal": S.NORMAL}[itype]
             sockets.append(S(iname, st, default))
         cls.SOCKETS = sockets
         super().__init_subclass__(**kw)
@@ -39,7 +41,7 @@ class ShaderNode(Node):
         if itype == "closure":
             return None
         v = getattr(self, iname)
-        if itype in ("color", "normal"):
+        if itype in ("color", "vector", "normal"):
             return np.asarray(v, np.float32)
         return v
 
@@ -94,15 +96,14 @@ class ShaderGraph:
 
     def evaluate(self, ctx):
         """Evaluate the graph over the wavefront described by `ctx`
-        (ops/shade.py ShaderData). Returns {'surface': closures}."""
+        (ops/shade.py ShaderData). Returns {'surface': closures,
+        'volume': volume closures or None}."""
         from raytracingproject_tpu_torch.models.shader_nodes import eval_node
-        if self.links.get((id(self.output_node), "volume")) is not None:
-            raise NotImplementedError("volume shaders are not ported")
         if self.links.get((id(self.output_node), "displacement")) \
                 is not None:
             raise NotImplementedError("displacement is not ported")
         values = {}
-        surface = None
+        surface = volume = None
         for node in self.topo_order():
             inp = {}
             for (iname, itype, _d) in node.INPUTS:
@@ -112,14 +113,14 @@ class ShaderGraph:
                 else:
                     inp[iname] = node.input_default(iname, itype)
             if node is self.output_node:
-                surface = inp.get("surface")
+                surface, volume = inp.get("surface"), inp.get("volume")
                 continue
             out = eval_node(node, ctx, inp)
             for (oname, _t) in node.OUTPUTS:
                 values[(id(node), oname)] = out[oname]
         if surface is None:
             surface = cl.empty_closures(ctx.batch_shape, ctx.device)
-        return {"surface": surface}
+        return {"surface": surface, "volume": volume}
 
 
 class Shader(Node):
@@ -128,6 +129,8 @@ class Shader(Node):
     SOCKETS = [
         S("use_mis", S.BOOLEAN, True),
         S("use_transparent_shadow", S.BOOLEAN, True),
+        S("volume_sampling_method", S.ENUM, "multiple_importance",
+          {"distance": 0, "equiangular": 1, "multiple_importance": 2}),
     ]
 
     def __init__(self, name="shader", graph=None, **kwargs):
@@ -138,14 +141,35 @@ class Shader(Node):
     def evaluate_surface(self, ctx):
         return self.graph.evaluate(ctx)["surface"]
 
+    def evaluate_volume(self, ctx):
+        return self.graph.evaluate(ctx)["volume"]
+
     def analyze(self):
-        """Static feature detection for this slice's node classes."""
+        """Static feature detection for the port's node classes (the JAX
+        package's Shader.analyze :295 for these classes)."""
         from raytracingproject_tpu_torch.models import shader_nodes as sn
+        g = self.graph
         self.has_surface_emission = False
         self.has_glossy = False
-        for node in self.graph.nodes:
+        self.has_subsurface = False
+        self.has_volume = False
+        self.has_heterogeneous_volume = False
+        for node in g.nodes:
             if isinstance(node, (sn.EmissionNode, sn.BackgroundNode)):
                 self.has_surface_emission = True
             if isinstance(node, sn.GlossyBsdfNode):
                 self.has_glossy = True
+            if isinstance(node, sn.SubsurfaceScatteringNode):
+                self.has_subsurface = True
+            if isinstance(node, sn.PrincipledVolumeNode):
+                self.has_volume = True
+                if g.links.get((id(node), "density")) is not None \
+                        or g.links.get((id(node), "color")) is not None:
+                    self.has_heterogeneous_volume = True
+        if g.links.get((id(g.output_node), "volume")) is not None:
+            self.has_volume = True
+        # a volume with no surface closure: its surface is a transparent
+        # boundary that shadow rays ignore
+        self.volume_only = self.has_volume \
+            and g.links.get((id(g.output_node), "surface")) is None
         return self

@@ -1,5 +1,6 @@
-"""Shader nodes of this slice and their torch evals (JAX counterpart:
-raytracingproject_tpu/models/shader_nodes.py).
+"""Shader nodes of the port and their torch evals (JAX counterpart:
+raytracingproject_tpu/models/shader_nodes.py; SubsurfaceScatteringNode
+:334, PrincipledVolumeNode :499).
 
 `EVALS` is the registry: node class -> eval(node, ctx, inp) returning
 {output_name: value}. The port grows it node by node; `eval_node`
@@ -66,6 +67,26 @@ class BackgroundNode(ShaderNode):
     OUTPUTS = [("background", "closure")]
 
 
+class SubsurfaceScatteringNode(ShaderNode):
+    INPUTS = [("color", "color", (0.8, 0.8, 0.8)),
+              ("scale", "float", 0.01),
+              ("radius", "vector", (0.1, 0.1, 0.1)),
+              ("normal", "normal", (0.0, 0.0, 0.0))]
+    OUTPUTS = [("bssrdf", "closure")]
+    PARAMS = [S("falloff", S.ENUM, "random_walk",
+                {"burley": 0, "random_walk": 1})]
+
+
+class PrincipledVolumeNode(ShaderNode):
+    INPUTS = [("color", "color", (0.5, 0.5, 0.5)),
+              ("density", "float", 1.0),
+              ("anisotropy", "float", 0.0),
+              ("absorption_color", "color", (0.0, 0.0, 0.0)),
+              ("emission_strength", "float", 0.0),
+              ("emission_color", "color", (1.0, 1.0, 1.0))]
+    OUTPUTS = [("volume", "closure")]
+
+
 def _check_normal(inp):
     n = inp.get("normal")
     if n is not None and (not isinstance(n, np.ndarray) or n.any()):
@@ -110,11 +131,39 @@ def _eval_background(node, ctx, inp):
     return {"background": c}
 
 
+def _eval_subsurface(node, ctx, inp):
+    _check_normal(inp)
+    c = cl.empty_closures(ctx.batch_shape, ctx.device)
+    c["subsurface"] = _bc(ctx, inp["color"])
+    c["subsurface_radius"] = _bc(ctx, inp["radius"]) \
+        * _bf(ctx, inp["scale"])[..., None]
+    if node.get_enum_int("falloff") == 0:  # burley
+        c["subsurface_burley"] = torch.ones(ctx.batch_shape,
+                                            device=ctx.device)
+    return {"bssrdf": c}
+
+
+def _eval_principled_volume(node, ctx, inp):
+    v = cl.empty_volume_closures(ctx.batch_shape, ctx.device)
+    density = torch.clamp(_bf(ctx, inp["density"]), min=0.0)[..., None]
+    sigma_s = _bc(ctx, inp["color"]) * density
+    sigma_a = torch.clamp(1.0 - _bc(ctx, inp["absorption_color"]),
+                          min=0.0) * density
+    v["sigma_s"] = sigma_s
+    v["sigma_t"] = sigma_s + sigma_a
+    v["anisotropy"] = _bf(ctx, inp["anisotropy"])
+    v["v_emission"] = _bc(ctx, inp["emission_color"]) \
+        * _bf(ctx, inp["emission_strength"])[..., None]
+    return {"volume": v}
+
+
 EVALS = {
     DiffuseBsdfNode: _eval_diffuse,
     GlossyBsdfNode: _eval_glossy,
     EmissionNode: _eval_emission,
     BackgroundNode: _eval_background,
+    SubsurfaceScatteringNode: _eval_subsurface,
+    PrincipledVolumeNode: _eval_principled_volume,
 }
 
 # class name -> port class, for graphs converted from the JAX package

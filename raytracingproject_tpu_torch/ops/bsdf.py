@@ -2,12 +2,15 @@
 raytracingproject_tpu/ops/bsdf.py bsdf_eval :440, bsdf_sample :604,
 _sample_ggx_vndf :53, _ggx_reflect_eval :256, _lobe_probs :398).
 
-Lobes of this slice: Lambert diffuse and GGX reflection with VNDF
-sampling (sharp GGX becomes a delta lobe). Sampling picks a lobe in
-proportion to its mean weight, samples it, then evaluates the whole
-stack at the sampled direction: the mixture pdf MIS needs. Directions
-follow the Cycles convention (I toward the viewer, omega_in toward the
-light). Scene features that need other lobes raise NotImplementedError.
+Lobes of the port: Lambert diffuse, GGX reflection with VNDF sampling
+(sharp GGX becomes a delta lobe) and the transparent pass-through (a
+delta lobe). Sampling picks a lobe in proportion to its mean weight,
+samples it, then evaluates the whole stack at the sampled direction: the
+mixture pdf MIS needs. The subsurface closure folds into the diffuse lobe
+unless the scene has the random-walk integrator (feature has_subsurface),
+which then takes the subsurface lobe itself. Directions follow the Cycles
+convention (I toward the viewer, omega_in toward the light). Scene
+features that need other lobes raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,13 +24,13 @@ LABEL_GLOSSY = 2
 LABEL_TRANSMIT = 4
 LABEL_SINGULAR = 8
 LABEL_TRANSPARENT = 16
+LABEL_VOLUME_SCATTER = 32
 
 SHARP_ROUGHNESS = 1e-4  # below this a lobe is a delta
 
 # scene features with lobes outside this slice
-_UNPORTED_FEATURES = ("has_refraction", "has_transparent",
-                      "has_diffuse_roughness", "has_multiscatter",
-                      "has_subsurface", "has_hair", "has_classic_hair",
+_UNPORTED_FEATURES = ("has_refraction", "has_diffuse_roughness",
+                      "has_multiscatter", "has_hair", "has_classic_hair",
                       "has_toon", "has_sheen", "has_aniso")
 
 
@@ -95,13 +98,17 @@ def _ggx_reflect_eval(wo, wi, alpha):
     return f_cos, pdf
 
 
-def _lobe_probs(c):
-    """Lobe pick probabilities from mean closure weights."""
-    wd = torch.mean(c["diffuse"].abs(), -1)
+def _lobe_probs(c, include_sss=True):
+    """Lobe pick probabilities (diffuse, glossy, transparent) and the
+    total weight, from mean closure weights. include_sss=False when the
+    random-walk integrator takes the subsurface lobe itself."""
+    wd = torch.mean(c["diffuse"].abs()
+                    + (c["subsurface"].abs() if include_sss else 0.0), -1)
     wg = torch.mean(c["glossy"].abs(), -1)
-    tot = wd + wg
+    wt = torch.mean(c["transparent"].abs(), -1)
+    tot = wd + wg + wt
     safe = torch.clamp(tot, min=1e-12)
-    return wd / safe, wg / safe, tot
+    return wd / safe, wg / safe, wt / safe, tot
 
 
 def bsdf_eval(c, N, I, omega_in, features=None):
@@ -109,13 +116,15 @@ def bsdf_eval(c, N, I, omega_in, features=None):
     delta lobes contribute nothing."""
     check_features(features)
     has_glossy = (features or {}).get("has_glossy", True)
+    has_sss_walk = (features or {}).get("has_subsurface", False)
     t, b = um.make_orthonormals(N)
     wo = um.to_local(I, t, b, N)
     wi = um.to_local(omega_in, t, b, N)
-    pd, pg, _tot = _lobe_probs(c)
+    pd, pg, _pt, _tot = _lobe_probs(c, include_sss=not has_sss_walk)
     reflect_side = wi[..., 2] > 0.0
     cos_i = torch.clamp(wi[..., 2], min=0.0)
-    f_diff = c["diffuse"] * (cos_i * um.M_1_PI)[..., None]
+    sss_part = 0.0 if has_sss_walk else c["subsurface"]
+    f_diff = (c["diffuse"] + sss_part) * (cos_i * um.M_1_PI)[..., None]
     pdf_diff = cos_i * um.M_1_PI
     f = f_diff * torch.where(reflect_side, 1.0, 0.0)[..., None]
     pdf = pd * torch.where(reflect_side, pdf_diff, 0.0)
@@ -133,17 +142,28 @@ def bsdf_sample(c, N, Ng, I, u1, u2, u_lobe, features=None):
     """Sample an outgoing direction from the closure stack. Returns dict
     omega (N,3), f_cos (N,3), pdf (N,), label (N,) int32, valid."""
     check_features(features)
-    has_glossy = (features or {}).get("has_glossy", True)
+    ft = features or {}
+    has_glossy = ft.get("has_glossy", True)
+    has_transparent = ft.get("has_transparent", True)
     t, b = um.make_orthonormals(N)
     wo = um.to_local(I, t, b, N)
-    pd, pg, tot = _lobe_probs(c)
-    # pick chain over the enabled lobes; the last one absorbs the fp tail
-    if has_glossy:
-        pick_d = u_lobe < pd
-        pick_g = ~pick_d
-    else:
-        pick_d = torch.ones_like(u_lobe, dtype=torch.bool)
-        pick_g = torch.zeros_like(pick_d)
+    pd, pg, pt, tot = _lobe_probs(
+        c, include_sss=not ft.get("has_subsurface", False))
+    # pick chain over the enabled lobes: each claims [cdf, cdf + p) of
+    # u_lobe; the last enabled one absorbs the fp tail
+    none = torch.zeros_like(u_lobe, dtype=torch.bool)
+    chain = [(pd, True), (pg, has_glossy), (pt, has_transparent)]
+    last = max(i for i, (_p, en) in enumerate(chain) if en)
+    picks, cdf, taken = [], None, none
+    for i, (p, en) in enumerate(chain):
+        if not en:
+            picks.append(none)
+            continue
+        cdf = p if cdf is None else cdf + p
+        pick = ~taken if i == last else ~taken & (u_lobe < cdf)
+        picks.append(pick)
+        taken = taken | pick
+    pick_d, pick_g, pick_t = picks
 
     r = torch.sqrt(u1)
     phi = um.M_2PI * u2
@@ -163,13 +183,17 @@ def bsdf_sample(c, N, Ng, I, u1, u2, u_lobe, features=None):
         label = torch.where(
             pick_g, torch.where(glossy_delta, LABEL_GLOSSY | LABEL_SINGULAR,
                                 LABEL_GLOSSY), label).to(torch.int32)
+    if has_transparent:
+        wi = torch.where(pick_t[..., None], -wo, wi)
+        label = torch.where(pick_t, LABEL_TRANSPARENT | LABEL_SINGULAR,
+                            label).to(torch.int32)
     omega = um.from_local(wi, t, b, N)
 
     # delta lanes bypass the mixture eval (weight / pick probability)
-    sampled_delta = pick_g & glossy_delta
+    sampled_delta = (pick_g & glossy_delta) | pick_t
     f_eval, pdf_eval = bsdf_eval(c, N, I, omega, features)
-    f_delta = torch.where(pick_g[..., None], c["glossy"], 0.0)
-    p_delta = torch.where(pick_g, pg, 0.0)
+    f_delta = torch.where(pick_g[..., None], c["glossy"], c["transparent"])
+    p_delta = torch.where(pick_g, pg, pt)
     f = torch.where(sampled_delta[..., None], f_delta, f_eval)
     pdf = torch.where(sampled_delta, p_delta, pdf_eval)
     valid = (tot > 1e-12) & (pdf > 1e-12)

@@ -20,19 +20,10 @@ launches = 0
 MAX_CLUSTERS = 512   # 9-bit cluster id in the packed visit key
 
 
-def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
-                            tmax, visibility, shadow_any_hit=False,
-                            has_instances=False, has_motion=False):
-    """Closest hit (or any hit) over the cluster tables; returns dict
-    t, u, v (f32) and prim, object (int32), (N,) each."""
-    global launches
-    if has_instances or has_motion:
-        raise NotImplementedError(
-            "instance and motion cluster rows are not ported")
-    if o.device.type == "cpu":
-        return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
-                                     tmin, tmax, visibility,
-                                     shadow_any_hit=shadow_any_hit)
+def check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
+                    visibility):
+    """Raise ValueError unless the arguments are what the closest-hit
+    walk kernels (K2, K4) take; returns (N, C, W)."""
     n, c, w = o.shape[0], cbounds.shape[0], ctable.shape[1]
     req = kernels.require
     for name, x in (("cbounds", cbounds), ("ctable", ctable), ("o", o),
@@ -49,6 +40,24 @@ def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
     req(o.shape == (n, 3) and d.shape == (n, 3), "o, d must be (N, 3)")
     for x in (tmin, tmax, visibility):
         req(x.shape == (n,), "tmin, tmax, visibility must be (N,)")
+    return n, c, w
+
+
+def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
+                            tmax, visibility, shadow_any_hit=False,
+                            has_instances=False, has_motion=False):
+    """Closest hit (or any hit) over the cluster tables; returns dict
+    t, u, v (f32) and prim, object (int32), (N,) each."""
+    global launches
+    if has_instances or has_motion:
+        raise NotImplementedError(
+            "instance and motion cluster rows are not ported")
+    if o.device.type == "cpu":
+        return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
+                                     tmin, tmax, visibility,
+                                     shadow_any_hit=shadow_any_hit)
+    n, c, w = check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin,
+                              tmax, visibility)
     dev = o.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)

@@ -1,25 +1,36 @@
 """Wavefront path integrator (JAX counterpart:
 raytracingproject_tpu/ops/integrator.py make_path_kernel :432,
 render_samples_regen :1879, _scene_intersect_tris :171,
-_shadow_blocked :328, _offset_eps :38, _clamp_contrib :420).
+_use_pallas_occlusion :151, _shadow_blocked :328, _offset_eps :38,
+_clamp_contrib :420).
 
 `make_path_kernel` returns (start_paths, step): start_paths creates a
 fresh per-lane path state from camera rays; step advances every lane one
-bounce -- intersect, background, surface emission with MIS, NEE with MIS
-and a shadow test, BSDF bounce, Russian roulette. `render_samples_regen`
-keeps the wavefront full by restarting dead lanes on their pixel's next
-sample (the JAX lax.while_loop becomes a Python loop). Same sample
-sequence and the same per-sample accumulation order as the JAX package.
+bounce -- intersect, the volume segment (homogeneous media and the
+random walk of subsurface scattering, :666-783), background, surface
+emission with MIS, NEE with MIS and a shadow test (for volume scenes the
+dual sweep with medium attenuation and equiangular NEE, :1141-1540),
+BSDF or phase-function bounce with SSS entry and the volume stack
+(:1540-1760), Russian roulette. `render_samples_regen` keeps the
+wavefront full by restarting dead lanes on their pixel's next sample
+(the JAX lax.while_loop becomes a Python loop). Same sample sequence and
+the same per-sample accumulation order as the JAX package.
 
-Surface transport only: volumes, SSS, AO/bevel nodes, bump, aux and
-light passes, shadow catchers, holdouts, transparent shadows, fused NEE
-and the branched integrator are not in this slice and raise.
+Not ported, and raising: heterogeneous media, volume NEE without the
+dual sweep, AO/bevel nodes, bump, aux and light passes, shadow catchers,
+holdouts, transparent shadows, fused NEE and the branched integrator.
 
-Intersection dispatch (the JAX package's TPU "auto" selection): closest
-hits go through K2 (ops/cluster_walk.py); the NEE shadow test goes
-through K3 (ops/occlusion_walk.py), or through K2 in any-hit mode when
-kg["pallas_occlusion"] is False. On CUDA tensors those are the CUDA
-kernels; on CPU tensors their plain torch versions.
+Intersection dispatch follows the JAX package's flags and precedence:
+kg["use_brute"] selects the dense sweep (K1, not ported: raises); else
+kg["pallas_onehot"] (default "auto" = on) the per-lane walk K2
+(ops/cluster_walk.py); else kg["pallas_clusters"] (default "auto" = on)
+the tile-shared walk K4 (ops/tile_walk.py); with both False the plain
+walk ops/cluster_intersect.py runs, on CPU tensors only. The NEE shadow
+test and the volume dual sweep go through K3 (ops/occlusion_walk.py)
+when kg["pallas_occlusion"] allows (default: every cluster scene that is
+not use_brute); a surface scene with it off takes the closest-hit
+walk's any-hit mode. On CUDA tensors the walks launch their kernels; on
+CPU tensors they run their plain torch versions.
 """
 
 from __future__ import annotations
@@ -29,11 +40,15 @@ import torch
 from raytracingproject_tpu_torch.models import object as ob
 from raytracingproject_tpu_torch.ops import bsdf as bsdf_ops
 from raytracingproject_tpu_torch.ops import camera as cam_ops
+from raytracingproject_tpu_torch.ops import closures as cl
+from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk
 from raytracingproject_tpu_torch.ops import film as film_ops
 from raytracingproject_tpu_torch.ops import light as light_ops
 from raytracingproject_tpu_torch.ops import occlusion_walk
 from raytracingproject_tpu_torch.ops import shade as shade_ops
+from raytracingproject_tpu_torch.ops import tile_walk
+from raytracingproject_tpu_torch.ops import volume as vol_ops
 from raytracingproject_tpu_torch.utils import math as um
 from raytracingproject_tpu_torch.utils import rng as rngu
 
@@ -71,36 +86,60 @@ def _check_cluster_scene(kg):
                                   "ported")
 
 
+def _flag(kg, name):
+    """A dispatch flag: "auto" (or absent) is on, the card's choice."""
+    mode = kg.get(name, "auto")
+    return True if mode == "auto" else bool(mode)
+
+
 def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
-    """Closest hit (any hit with shadow=True) through K2."""
+    """Closest hit (any hit with shadow=True) through K2, K4 or, on the
+    CPU with both off, the plain walk."""
     _check_cluster_scene(kg)
     ds = kg["dscene"]
-    return cluster_walk.intersect_clusters_walk(
-        ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
-        o, d, tmin, tmax, visibility, shadow_any_hit=shadow)
+    args = (ds["cluster_bounds"], ds["cluster_table"],
+            int(kg["cluster_tris"]), o, d, tmin, tmax, visibility)
+    if _flag(kg, "pallas_onehot"):
+        return cluster_walk.intersect_clusters_walk(*args,
+                                                    shadow_any_hit=shadow)
+    if _flag(kg, "pallas_clusters"):
+        return tile_walk.intersect_clusters_tile(*args,
+                                                 shadow_any_hit=shadow)
+    if o.device.type != "cpu":
+        raise NotImplementedError(
+            "the plain cluster walk is not a render path on the card: set "
+            "pallas_onehot (K2) or pallas_clusters (K4)")
+    return ci.intersect_clusters(*args, shadow_any_hit=shadow)
 
 
 def _use_occlusion_walk(kg):
-    """K3 for the shadow test: the JAX package's TPU "auto" choice (every
-    single-level cluster scene); kg["pallas_occlusion"] = False routes it
-    through K2 any-hit instead."""
-    if "cluster_boundary" not in kg["dscene"]:
+    """K3 for the NEE shadow test and the volume dual sweep: "auto"
+    follows the main dispatch (every cluster scene that is not
+    use_brute); True forces it wherever cluster tables exist."""
+    ds = kg["dscene"]
+    if "cluster_boundary" not in ds or "cluster_bounds" not in ds \
+            or int(kg.get("cluster_tris", 0)) <= 0:
         return False
     mode = kg.get("pallas_occlusion", "auto")
     return (not kg["use_brute"]) if mode == "auto" else bool(mode)
 
 
-def _shadow_blocked(kg, o, d, tmin, tmax):
+def _occlusion(kg, o, d, tmin, tmax_closest, tmax_any):
+    """K3: (t_boundary, t_other, blocked) under camera visibility for
+    the closest window and shadow visibility for the any-hit window."""
+    _check_cluster_scene(kg)
     ds = kg["dscene"]
+    return occlusion_walk.occlusion_clusters_walk(
+        ds["cluster_bounds"], ds["cluster_table"], ds["cluster_boundary"],
+        int(kg["cluster_tris"]), o, d, tmin, tmax_closest=tmax_closest,
+        tmax_any=tmax_any, vis_closest=ob.PATH_RAY_CAMERA,
+        vis_any=ob.PATH_RAY_SHADOW)
+
+
+def _shadow_blocked(kg, o, d, tmin, tmax):
     if _use_occlusion_walk(kg):
-        _check_cluster_scene(kg)
         # pure any-hit: the closest window is empty ([tmin, tmin])
-        _tb, _to, blocked = occlusion_walk.occlusion_clusters_walk(
-            ds["cluster_bounds"], ds["cluster_table"],
-            ds["cluster_boundary"], int(kg["cluster_tris"]), o, d, tmin,
-            tmax_closest=tmin, tmax_any=tmax,
-            vis_closest=ob.PATH_RAY_CAMERA, vis_any=ob.PATH_RAY_SHADOW)
-        return blocked
+        return _occlusion(kg, o, d, tmin, tmin, tmax)[2]
     vis = torch.full(o.shape[:1], ob.PATH_RAY_SHADOW, dtype=torch.int32,
                      device=o.device)
     hit = _scene_intersect_tris(kg, o, d, tmin, tmax, vis, shadow=True)
@@ -138,6 +177,30 @@ def make_path_kernel(kg, px, py, pixel_index):
     has_lights = int(ds["light_dist_type"].shape[0]) > 0
     if float(ds["bg_pmf"]) > 0.0:
         raise NotImplementedError("background light sampling is not ported")
+    has_volume = bool(features.get("has_volume", False))
+    has_sss = bool(features.get("has_subsurface", False))
+    has_medium = has_volume or has_sss
+    has_equiangular = has_volume \
+        and bool(features.get("has_equiangular", False))
+    if has_volume and features.get("has_heterogeneous"):
+        raise NotImplementedError("heterogeneous media are not ported")
+    # volume NEE: one dual sweep answers the shadow any-hit and the
+    # medium-boundary closest hit of the same segment
+    use_dual_shadow = has_volume \
+        and not any(kg.get("shader_shadow_transparent", ())) \
+        and (bool(kg["use_brute"]) or _use_occlusion_walk(kg))
+    if has_volume and has_lights and not use_dual_shadow:
+        raise NotImplementedError(
+            "volume NEE without the dual occlusion sweep is not ported")
+    if has_volume:
+        nsh = len(kg["shaders"])
+
+        def per_shader(key, dtype):
+            return torch.tensor(list(kg[key]), dtype=dtype, device=dev)
+
+        shader_vol = per_shader("shader_has_volume", torch.bool)
+        vol_only = per_shader("shader_volume_only", torch.float32)
+        vol_sampling = per_shader("shader_vol_sampling", torch.int32)
 
     def rng2_batch(dim_pairs, samples):
         """All of a stage's dimension pairs in one sampler call: dims are
@@ -162,7 +225,7 @@ def make_path_kernel(kg, px, py, pixel_index):
         ray = cam_ops.camera_sample_ray(kg["cam"], raster_x, raster_y,
                                         lens_u, lens_v, time_u)
         zero = torch.zeros(n, device=dev)
-        return {
+        st = {
             "o": ray["o"], "d": ray["d"],
             "tmin": ray["tmin"], "tmax": ray["tmax"], "time": ray["time"],
             "throughput": torch.ones((n, 3), device=dev),
@@ -177,6 +240,18 @@ def make_path_kernel(kg, px, py, pixel_index):
             "bounce": i32(0),
             "sample": samples,
         }
+        if has_volume:
+            # volume stack: vol_shader is the current medium (top),
+            # vol_rest the enclosing media below it
+            vk = max(2, int(kg.get("volume_stack_depth", 4)))
+            st["vol_shader"] = i32(-1)
+            st["vol_rest"] = torch.full((n, vk - 1), -1, dtype=torch.int32,
+                                        device=dev)
+        if has_sss:
+            st["in_sss"] = torch.zeros(n, dtype=torch.bool, device=dev)
+            st["sss_sigma_t"] = torch.zeros((n, 3), device=dev)
+            st["sss_albedo"] = torch.ones((n, 3), device=dev)
+        return st
 
     def vis_of_flag(flag):
         return torch.where(
@@ -185,6 +260,145 @@ def make_path_kernel(kg, px, py, pixel_index):
                         torch.where((flag & ob.PATH_RAY_TRANSMIT) > 0,
                                     ob.PATH_RAY_TRANSMIT,
                                     ob.PATH_RAY_GLOSSY))).to(torch.int32)
+
+    def dual_sweep(o_s, d_s, on_any, on_closest, tmax_s):
+        """((t_boundary, t_other), blocked) of one segment; disabled
+        lanes get the empty window [1e-5, 1e-5]."""
+        if kg["use_brute"]:
+            raise NotImplementedError(
+                "the dense occlusion sweep is not ported")
+        tmin = torch.full((n,), 1e-5, device=dev)
+        t_b, t_o, blk = _occlusion(
+            kg, o_s.contiguous(), d_s.contiguous(), tmin,
+            torch.where(on_closest, torch.clamp(tmax_s, max=um.RAY_TMAX),
+                        1e-5),
+            torch.where(on_any, tmax_s, 1e-5))
+        return (t_b, t_o), blk
+
+    def vol_nee_attenuation(sigma_t, boundary_hit, dist_l):
+        """Medium transmittance from an in-volume point to the medium
+        boundary along an NEE segment, and whether a non-boundary surface
+        blocks the segment first (the dual sweep's two minima)."""
+        t_bb, t_oo = boundary_hit
+        t_first = torch.minimum(t_bb, t_oo)
+        found = t_first < um.RAY_TMAX * 0.5
+        t_seg = torch.where(found, t_first, torch.clamp(dist_l, max=1e6))
+        trans = torch.exp(-sigma_t * t_seg[:, None])
+        return trans, found & ~(t_bb <= t_oo)
+
+    def medium_segment(st, hit, throughput, L, phase_v, lobe_u):
+        """Homogeneous medium along the ray segment up to the hit: the
+        distance sample, emission, and the segment's throughput weight."""
+        alive = st["alive"]
+        if has_volume:
+            in_vol = alive & (st["vol_shader"] >= 0)
+            d = st["d"]
+            vctx = shade_ops.ShaderData(
+                P=st["o"], N=-d, Ng=-d, Ns=-d, I=-d, time=st["time"],
+                ray_length=hit["t"], ray_depth=st["bounce"],
+                path_flag=st["path_flag"], prim=hit["prim"],
+                shader=st["vol_shader"], object_index=hit["object"],
+                backfacing=torch.zeros(n, dtype=torch.bool, device=dev),
+                batch_shape=(n,), device=dev)
+            vc = vol_ops.eval_volume_closures(
+                kg["shaders"], kg["shader_has_volume"], st["vol_shader"], n,
+                vctx)
+        else:
+            in_vol = torch.zeros(n, dtype=torch.bool, device=dev)
+            vc = cl.empty_volume_closures((n,), dev)
+        if has_sss:
+            # the SSS walk: a pure-scattering medium set at entry
+            in_sss = alive & st["in_sss"]
+            vc = dict(vc)
+            vc["sigma_t"] = torch.where(in_sss[:, None], st["sss_sigma_t"],
+                                        vc["sigma_t"])
+            vc["sigma_s"] = torch.where(
+                in_sss[:, None], st["sss_sigma_t"] * st["sss_albedo"],
+                vc["sigma_s"])
+            vc["anisotropy"] = torch.where(in_sss, 0.0, vc["anisotropy"])
+            in_vol = in_vol | in_sss
+        # rng: the PHASE pair's v for the distance, the TERMINATE pair's
+        # v for the channel (volume lanes make no surface lobe pick)
+        dres = vol_ops.sample_distance_homogeneous(
+            vc["sigma_t"], throughput, hit["t"], phase_v, lobe_u)
+        # no sigma_s gate: a scatter in a purely absorbing medium carries
+        # weight 0 and ends the lane, which is the absorption estimator
+        scattered = in_vol & dres["scatter"]
+        seg_t = torch.where(scattered, dres["t_scatter"], hit["t"])
+        L = torch.where(in_vol[:, None],
+                        L + throughput * vol_ops.emission_integral(
+                            vc["v_emission"], vc["sigma_t"], seg_t), L)
+        w_seg = torch.where(scattered[:, None],
+                            dres["weight_scatter"] * vc["sigma_s"],
+                            dres["weight_pass"])
+        throughput = torch.where(in_vol[:, None], throughput * w_seg,
+                                 throughput)
+        P_scatter = st["o"] + st["d"] * dres["t_scatter"][:, None]
+        return vc, dres, scattered, P_scatter, throughput, L
+
+    def equiangular_nee(st, hit, ls, vc, vol_g, dres, sel_u, lu, lv,
+                        clamp_val, L):
+        """Equiangular volume NEE, decoupled from the path continuation:
+        a scatter point drawn toward the sampled light point, MIS-weighted
+        against distance sampling in multiple-importance mode. Returns
+        (L, weight for the distance-point NEE contribution, mask of lanes
+        whose distance-point NEE pure equiangular replaces)."""
+        vs = torch.clamp(st["vol_shader"], 0, nsh - 1).long()
+        mode_lane = vol_sampling[vs]
+        # every traversed volume segment, scattered or not
+        eq_vol = st["alive"] & (st["vol_shader"] >= 0)
+        if has_sss:
+            eq_vol = eq_vol & ~st["in_sss"]
+        eq_lane = eq_vol & (mode_lane >= 1)
+        mis_lane = eq_vol & (mode_lane == 2)
+        t_seg_max = hit["t"]
+        thr0 = st["throughput"]
+        # position lights only (distant ones have no pivot point)
+        pos_light = ls["valid"] & ~ls["is_bg"] \
+            & (ls["dist"] < um.RAY_TMAX * 0.5)
+        eq_seed = rngu.hash_pcg3d(pixel_index, st["sample"],
+                                  st["bounce"].long() ^ 0x51ED270B)
+        u_eq = rngu.uint_to_float_01(eq_seed)
+        t_eq, pdf_eq, eq_geom = vol_ops.equiangular_sample(
+            st["o"], st["d"], t_seg_max, ls["P_l"], u_eq)
+        eq_ok = eq_geom & eq_lane & pos_light & (pdf_eq > 1e-12)
+        P_eq = st["o"] + st["d"] * t_eq[:, None]
+        # the same light point seen from the equiangular point
+        ls_eq = light_ops.sample_light(ds, P_eq, sel_u, lu, lv,
+                                       static_kinds=kg.get("light_kinds"),
+                                       rows=ls["rows"])
+        T_eq = torch.exp(-vc["sigma_t"] * t_eq[:, None])
+        ph_eq = vol_ops.hg_phase_eval(um.dot(st["d"], ls_eq["D"]), vol_g)
+        w_l_eq = torch.where(ls_eq["delta"], 1.0,
+                             um.power_heuristic(ls_eq["pdf"], ph_eq))
+        pdf_d_at_eq = vol_ops.distance_pdf(vc["sigma_t"], thr0, t_eq)
+        w_t_eq = torch.where(mis_lane,
+                             um.power_heuristic(pdf_eq, pdf_d_at_eq), 1.0)
+        contrib_eq = thr0 * T_eq * vc["sigma_s"] * ls_eq["eval"] \
+            * (ph_eq * w_l_eq * w_t_eq)[:, None] \
+            * um.safe_divide(1.0, pdf_eq * ls_eq["pdf"], 0.0)[:, None]
+        contrib_eq = _clamp_contrib(contrib_eq, clamp_val)
+        sh_on_eq = eq_ok & (contrib_eq != 0.0).any(-1)
+        sh_tmax_eq = torch.clamp(ls_eq["dist"] * (1.0 - 1e-3) - RAY_EPS,
+                                 min=1e-5)
+        bhit_eq, blk_eq = dual_sweep(P_eq, ls_eq["D"], sh_on_eq, sh_on_eq,
+                                     sh_tmax_eq)
+        sh_trans_eq = torch.where(blk_eq[:, None], 0.0, 1.0)
+        contrib_eq = contrib_eq * sh_trans_eq
+        trans_eq, block_eq = vol_nee_attenuation(vc["sigma_t"], bhit_eq,
+                                                 sh_tmax_eq)
+        contrib_eq = contrib_eq * trans_eq
+        eq_lit = sh_on_eq & ~block_eq & (sh_trans_eq > 0.0).any(-1)
+        L = torch.where(eq_lit[:, None], L + contrib_eq, L)
+        # the distance-point estimator: MIS-weighted in MIS mode
+        pdf_eq_at_td = torch.where(
+            pos_light,
+            vol_ops.equiangular_pdf(st["o"], st["d"], t_seg_max, ls["P_l"],
+                                    dres["t_scatter"]), 0.0)
+        pdf_d_at_td = vol_ops.distance_pdf(vc["sigma_t"], thr0,
+                                           dres["t_scatter"])
+        w_t_d = um.power_heuristic(pdf_d_at_td, pdf_eq_at_td)
+        return L, w_t_d, mis_lane, eq_lane & ~mis_lane & eq_ok
 
     def step(st):
         alive = st["alive"]
@@ -196,7 +410,7 @@ def make_path_kernel(kg, px, py, pixel_index):
         bdims = base[None, :] + torch.tensor(
             [rngu.PRNG_BSDF, rngu.PRNG_LIGHT, rngu.PRNG_TERMINATE,
              rngu.PRNG_PHASE], device=dev)[:, None]
-        (bu, lu, rr_u, sel_u), (bv, lv, lobe_u, _phase_v) = rng2_batch(
+        (bu, lu, rr_u, sel_u), (bv, lv, lobe_u, phase_v) = rng2_batch(
             bdims, st["sample"])
 
         hit = _scene_intersect_tris(kg, st["o"], st["d"], st["tmin"],
@@ -205,25 +419,49 @@ def make_path_kernel(kg, px, py, pixel_index):
         L = st["L"]
         throughput = st["throughput"]
 
+        # ---- volume segment ----
+        scattered = torch.zeros(n, dtype=torch.bool, device=dev)
+        if has_medium:
+            vc, dres, scattered, P_scatter, throughput, L = medium_segment(
+                st, hit, throughput, L, phase_v, lobe_u)
+            vol_g = vc["anisotropy"]
+
         # ---- area lamps hit by this ray (MIS) ----
         if kg.get("num_area_lamps", 0) > 0:
             light_ops.lamp_hits(ds, kg["lamp_types"], st["o"], st["d"],
                                 st["tmax"], None)
 
         # ---- background ----
-        miss = alive & ~found
+        miss = alive & ~found & ~scattered
         bg = shade_ops.eval_background(kg["shaders"],
                                        kg["background_shader"], st["d"],
                                        path_flag=st["path_flag"])
         contrib = _clamp_contrib(throughput * bg, clamp_val)
         L = torch.where(miss[:, None], L + contrib, L)
-        alive = alive & found
+        alive = alive & (found | scattered)
+        on_surface = alive & ~scattered
 
         # ---- shading ----
         sd = shade_ops.shader_setup(ds, hit, st["o"], st["d"],
                                     time=st["time"], ray_depth=bounce,
                                     path_flag=st["path_flag"])
         closures = shade_ops.eval_shaders(kg["shaders"], sd, sd.shader)
+        if has_volume:
+            # volume-only materials: their surfaces are transparent
+            closures["transparent"] = closures["transparent"] \
+                + vol_only[torch.clamp(sd.shader, 0, nsh - 1).long()][:, None]
+        if has_sss:
+            # SSS walk exit: a surface hit from inside ends the walk as a
+            # unit diffuse transmission on the outside (the -N side)
+            sss_exit = on_surface & st["in_sss"]
+            for k in cl.CLOSURE_VEC_KEYS:
+                if k == "subsurface_radius":
+                    continue
+                base_v = 1.0 if k == "diffuse" else 0.0
+                closures[k] = torch.where(sss_exit[:, None], base_v,
+                                          closures[k])
+            sd.N = torch.where(sss_exit[:, None], -sd.N, sd.N)
+            sd.Ng = torch.where(sss_exit[:, None], -sd.Ng, sd.Ng)
 
         # ---- surface emission with MIS ----
         emis = closures["emission"]
@@ -232,24 +470,26 @@ def make_path_kernel(kg, px, py, pixel_index):
         if has_lights:
             pdf_light = light_ops.triangle_light_pdf(
                 ds, (sd.prim_row, sd.object_tfm), hit["t"], cos_hit)
-            w_emis = torch.where(st["singular_prev"], 1.0,
-                                 um.power_heuristic(st["pdf_prev"],
-                                                    pdf_light))
         else:
-            w_emis = torch.where(st["singular_prev"], 1.0,
-                                 um.power_heuristic(
-                                     st["pdf_prev"],
-                                     torch.zeros_like(st["pdf_prev"])))
+            pdf_light = torch.zeros_like(st["pdf_prev"])
+        w_emis = torch.where(st["singular_prev"], 1.0,
+                             um.power_heuristic(st["pdf_prev"], pdf_light))
         contrib = _clamp_contrib(throughput * emis * w_emis[:, None],
                                  clamp_val)
-        L = torch.where((alive & has_emis)[:, None], L + contrib, L)
+        L = torch.where((on_surface & has_emis)[:, None], L + contrib, L)
 
-        # ---- NEE + MIS ----
+        # ---- NEE + MIS (from the surface point or the scatter point) ----
         if has_lights:
-            ls = light_ops.sample_light(ds, sd.P, sel_u, lu, lv,
+            P_nee = torch.where(scattered[:, None], P_scatter, sd.P) \
+                if has_medium else sd.P
+            ls = light_ops.sample_light(ds, P_nee, sel_u, lu, lv,
                                         static_kinds=kg.get("light_kinds"))
             f_l, pdf_fwd = bsdf_ops.bsdf_eval(closures, sd.N, sd.I, ls["D"],
                                               features)
+            if has_medium:
+                ph = vol_ops.hg_phase_eval(um.dot(st["d"], ls["D"]), vol_g)
+                f_l = torch.where(scattered[:, None], ph[:, None], f_l)
+                pdf_fwd = torch.where(scattered, ph, pdf_fwd)
             w_l = torch.where(ls["delta"], 1.0,
                               um.power_heuristic(ls["pdf"], pdf_fwd))
             contrib = throughput * f_l * ls["eval"] \
@@ -257,29 +497,95 @@ def make_path_kernel(kg, px, py, pixel_index):
             contrib = _clamp_contrib(contrib, clamp_val)
             can_light = alive & ls["valid"] & (contrib != 0.0).any(-1)
             # the shadow segment is recomputed from the offset origin
-            # toward the sampled light point
+            # toward the sampled light point (scatter points: no offset)
             off = torch.where((um.dot(ls["D"], sd.Ng) > 0)[:, None],
                               sd.Ng, -sd.Ng) \
                 * _offset_eps(sd.P, sd.ray_length)[:, None]
-            sh_o = sd.P + off
+            if has_medium:
+                off = torch.where(scattered[:, None], 0.0, off)
+            sh_o = P_nee + off
             distant = ls["dist"] >= um.RAY_TMAX * 0.5
-            P_light = sd.P + ls["D"] * ls["dist"][:, None]
+            P_light = P_nee + ls["D"] * ls["dist"][:, None]
             to_l = P_light - sh_o
             dist2 = torch.clamp(um.length(to_l), min=1e-12)
             sh_d = torch.where(distant[:, None], ls["D"],
                                to_l / dist2[:, None])
             sh_tmax = torch.where(distant, um.RAY_TMAX,
                                   dist2 * (1.0 - 1e-3) - RAY_EPS)
-            tmin_sh = torch.full((n,), 1e-5, device=dev)
-            blocked = _shadow_blocked(
-                kg, sh_o, sh_d, tmin_sh,
-                torch.where(can_light, sh_tmax, tmin_sh))
-            contrib = contrib * torch.where(blocked[:, None], 0.0, 1.0)
+            if use_dual_shadow:
+                in_vol_sh = st["vol_shader"] >= 0
+                bhit_sh, blocked = dual_sweep(sh_o, sh_d, can_light,
+                                              can_light & in_vol_sh, sh_tmax)
+                contrib = contrib * torch.where(blocked[:, None], 0.0, 1.0)
+                # in a medium: attenuate to the boundary; a surface before
+                # it blocks, the boundary itself does not
+                trans, vol_block = vol_nee_attenuation(vc["sigma_t"],
+                                                       bhit_sh, sh_tmax)
+                contrib = torch.where(in_vol_sh[:, None], contrib * trans,
+                                      contrib)
+                blocked = torch.where(in_vol_sh, vol_block, blocked)
+            else:
+                tmin_sh = torch.full((n,), 1e-5, device=dev)
+                blocked = _shadow_blocked(
+                    kg, sh_o, sh_d, tmin_sh,
+                    torch.where(can_light, sh_tmax, tmin_sh))
+                contrib = contrib * torch.where(blocked[:, None], 0.0, 1.0)
+            if has_equiangular:
+                L, w_t_d, mis_lane, replaced = equiangular_nee(
+                    st, hit, ls, vc, vol_g, dres, sel_u, lu, lv, clamp_val,
+                    L)
+                contrib = torch.where((scattered & mis_lane)[:, None],
+                                      contrib * w_t_d[:, None], contrib)
+                can_light = can_light & ~(scattered & replaced)
             L = torch.where((can_light & ~blocked)[:, None], L + contrib, L)
 
-        # ---- BSDF bounce ----
+        # ---- BSDF bounce (phase function at scatter points) ----
         bs = bsdf_ops.bsdf_sample(closures, sd.N, sd.Ng, sd.I, bu, bv,
                                   lobe_u, features)
+        if has_medium:
+            ph_dir, ph_pdf = vol_ops.hg_phase_sample(st["d"], vol_g, bu, bv)
+            # HG is importance sampled exactly: f == pdf
+            bs = {"omega": torch.where(scattered[:, None], ph_dir,
+                                       bs["omega"]),
+                  "f_cos": torch.where(scattered[:, None], ph_pdf[:, None],
+                                       bs["f_cos"]),
+                  "pdf": torch.where(scattered, ph_pdf, bs["pdf"]),
+                  "valid": torch.where(scattered, ph_pdf > 0.0, bs["valid"]),
+                  "label": torch.where(scattered,
+                                       bsdf_ops.LABEL_VOLUME_SCATTER,
+                                       bs["label"]).to(torch.int32)}
+        if has_sss:
+            # SSS walk entry: pick the subsurface lobe against the rest
+            # and dive in on a cosine direction through the surface; the
+            # walk's medium follows the Christensen-Burley albedo
+            # inversion for burley falloff, else sigma_t = 1 / radius
+            sss_w = closures["subsurface"].abs().mean(-1)
+            rest_w = bsdf_ops._lobe_probs(closures, include_sss=False)[-1]
+            p_entry = um.safe_divide(sss_w, sss_w + rest_w, 0.0)
+            entry = on_surface & ~st["in_sss"] & (phase_v < p_entry) \
+                & (sss_w > 1e-12)
+            d_in, pdf_in = um.sample_cos_hemisphere(-sd.N, bu, bv)
+            is_burley = closures["subsurface_burley"] > 0.0
+            A_c = torch.clamp(closures["subsurface"], 0.0, 0.999)
+            alpha_w = 1.0 - torch.exp(
+                A_c * (-5.09406 + A_c * (2.61188 - 4.31805 * A_c)))
+            s_scale = 1.9 - A_c + 3.5 * (A_c - 0.8) ** 2
+            entry_color = torch.where(is_burley[:, None], 1.0,
+                                      closures["subsurface"])
+            keep = on_surface & ~st["in_sss"] & ~entry & (sss_w > 1e-12)
+            pdf = torch.where(entry, pdf_in * torch.clamp(p_entry, min=1e-12),
+                              bs["pdf"])
+            bs = {"omega": torch.where(entry[:, None], d_in, bs["omega"]),
+                  "f_cos": torch.where(entry[:, None],
+                                       entry_color * pdf_in[:, None],
+                                       bs["f_cos"]),
+                  # non-entry lanes keep their (1 - p_entry) pick weight
+                  "pdf": torch.where(
+                      keep, pdf * torch.clamp(1.0 - p_entry, min=1e-12), pdf),
+                  "valid": torch.where(entry, pdf_in > 0.0, bs["valid"]),
+                  "label": torch.where(entry, bsdf_ops.LABEL_TRANSMIT,
+                                       bs["label"]).to(torch.int32)}
+
         new_throughput = throughput * bs["f_cos"] \
             * um.safe_divide(1.0, bs["pdf"], 0.0)[:, None]
         alive2 = alive & bs["valid"] \
@@ -322,7 +628,12 @@ def make_path_kernel(kg, px, py, pixel_index):
             | torch.where(is_trans, ob.PATH_RAY_TRANSMIT, 0)
             | torch.where(is_sing, ob.PATH_RAY_SINGULAR, 0)
         ).to(torch.int32)
-        return {
+        if has_medium:
+            new_o = torch.where(scattered[:, None], P_scatter, new_o)
+            new_flag = torch.where(scattered,
+                                   flag | ob.PATH_RAY_VOLUME_SCATTER,
+                                   new_flag).to(torch.int32)
+        out = {
             "o": torch.where(alive2[:, None], new_o, st["o"]),
             "d": torch.where(alive2[:, None], bs["omega"], st["d"]),
             "tmin": torch.full((n,), 1e-5, device=dev),
@@ -341,6 +652,43 @@ def make_path_kernel(kg, px, py, pixel_index):
             "bounce": bounce + 1,
             "sample": st["sample"],
         }
+        if has_volume:
+            # the volume stack at transmissive surface crossings: entering
+            # a volume shader pushes it, exiting removes the first entry
+            # of the crossed shader (deeper entries shift up)
+            crossing = (is_trans | is_transp) & on_surface & alive2
+            entering = crossing \
+                & shader_vol[torch.clamp(sd.shader, 0, nsh - 1).long()] \
+                & ~sd.backfacing
+            exiting = crossing & sd.backfacing
+            stack = torch.cat([st["vol_shader"][:, None], st["vol_rest"]], 1)
+            pushed = torch.cat([sd.shader[:, None], stack[:, :-1]], 1)
+            match = stack == sd.shader[:, None]
+            # entries at and below the first match (argmax: first True)
+            first = match.to(torch.int8).argmax(1, keepdim=True)
+            seen = match.any(1, keepdim=True) \
+                & (torch.arange(stack.shape[1], device=dev)[None] >= first)
+            shifted = torch.cat([stack[:, 1:], torch.full_like(
+                stack[:, :1], -1)], 1)
+            popped = torch.where(seen, shifted, stack)
+            new_stack = torch.where(entering[:, None], pushed,
+                                    torch.where(exiting[:, None], popped,
+                                                stack))
+            out["vol_shader"] = new_stack[:, 0].contiguous()
+            out["vol_rest"] = new_stack[:, 1:].contiguous()
+        if has_sss:
+            radius = torch.clamp(closures["subsurface_radius"], 1e-5, 1e8)
+            out["in_sss"] = ((st["in_sss"] & ~sss_exit) | entry) & alive2
+            sigma_entry = torch.where(
+                is_burley[:, None],
+                1.0 / torch.clamp(radius * s_scale, 1e-5, 1e8),
+                1.0 / radius)
+            out["sss_sigma_t"] = torch.where(entry[:, None], sigma_entry,
+                                             st["sss_sigma_t"])
+            out["sss_albedo"] = torch.where(
+                entry[:, None], torch.where(is_burley[:, None], alpha_w, 1.0),
+                st["sss_albedo"])
+        return out
 
     return start_paths, step
 

@@ -24,22 +24,29 @@ def light_distribution_sample(dscene, u):
     return idx, lk.lookup_rows(dscene["light_entries"], idx)
 
 
-def sample_light(dscene, P, u_sel, u1, u2, static_kinds=None):
-    """One NEE light sample per shading point P (N, 3)."""
+def sample_light(dscene, P, u_sel, u1, u2, static_kinds=None, rows=None):
+    """One NEE light sample per shading point P (N, 3). `rows`: the
+    entry rows a previous sample_light call with the same randoms picked
+    (the equiangular volume NEE re-evaluates that light point from
+    another observer without fetching them again)."""
     if not static_kinds or set(static_kinds) != {"tri"}:
         raise NotImplementedError(
             "only all-triangle light distributions are ported")
-    return _sample_light_all_tri(dscene, P, u_sel, u1, u2)
+    return _sample_light_all_tri(dscene, P, u_sel, u1, u2, rows)
 
 
-def _sample_light_all_tri(dscene, P, u_sel, u1, u2):
+def _sample_light_all_tri(dscene, P, u_sel, u1, u2, rows=None):
     """Uniform-area point on a power-picked emissive triangle. Returns
-    dict valid, delta, D (unit direction to the light), dist, pdf (solid
-    angle x pick pmf), eval (emitted radiance), Ng_l, P_l, pmf."""
+    dict valid, delta, is_bg, D (unit direction to the light), dist, pdf
+    (solid angle x pick pmf), eval (emitted radiance), Ng_l, P_l, pmf and
+    the picked entry rows."""
     n = P.shape[0]
-    eidx, erow = light_distribution_sample(dscene, u_sel)
-    prow = lk.lookup_rows(dscene["le_prim_rows"], eidx)
-    orow = lk.lookup_rows(dscene["le_obj_rows"], eidx)
+    if rows is None:
+        eidx, erow = light_distribution_sample(dscene, u_sel)
+        rows = {"erow": erow,
+                "prow": lk.lookup_rows(dscene["le_prim_rows"], eidx),
+                "orow": lk.lookup_rows(dscene["le_obj_rows"], eidx)}
+    erow, prow, orow = rows["erow"], rows["prow"], rows["orow"]
     pmf = erow[:, 2]
     tv = prow[:, lk.PT_V0:lk.PT_V0 + 9].reshape(n, 3, 3)
     tri_emission = prow[:, lk.PT_EMISSION:lk.PT_EMISSION + 3]
@@ -60,10 +67,10 @@ def _sample_light_all_tri(dscene, P, u_sel, u1, u2):
     d2 = dist * dist
     pdf = um.safe_divide(d2, cos_l.abs() * area_tri, 0.0) * pmf
     valid = (pdf > 1e-12) & (cos_l.abs() > 1e-6) & (erow[:, 1] >= 0.0)
-    return {"valid": valid,
-            "delta": torch.zeros(n, dtype=torch.bool, device=P.device),
+    false = torch.zeros(n, dtype=torch.bool, device=P.device)
+    return {"valid": valid, "delta": false, "is_bg": false,
             "D": D, "dist": dist, "pdf": pdf, "eval": tri_emission,
-            "Ng_l": Ng_l, "P_l": P_l, "pmf": pmf}
+            "Ng_l": Ng_l, "P_l": P_l, "pmf": pmf, "rows": rows}
 
 
 def triangle_light_pdf(dscene, prim_row, t_hit, cos_hit):

@@ -13,6 +13,7 @@ import torch
 
 M_PI = 3.14159265358979323846
 M_2PI = 2.0 * M_PI
+M_4PI = 4.0 * M_PI
 M_1_PI = 1.0 / M_PI
 
 # Large-but-finite ray distance (fp32 safe).
@@ -106,6 +107,18 @@ def to_local(v, t, b, n):
 def from_local(v, t, b, n):
     """Tangent-space direction -> world."""
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def sample_cos_hemisphere(n, u1, u2):
+    """Cosine-weighted hemisphere sample around n -> (dir, pdf)."""
+    r = torch.sqrt(u1)
+    phi = M_2PI * u2
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = safe_sqrt(1.0 - u1)
+    t, b = make_orthonormals(n)
+    d = x[..., None] * t + y[..., None] * b + z[..., None] * n
+    return d, z * M_1_PI
 
 
 def triangle_area(v0, v1, v2):

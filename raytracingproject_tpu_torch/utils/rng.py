@@ -90,6 +90,10 @@ def hash_pcg2d(a, b):
     return hash_pcg(hash_combine(hash_pcg(a), b))
 
 
+def hash_pcg3d(a, b, c):
+    return hash_pcg(hash_combine(hash_combine(hash_pcg(a), b), c))
+
+
 def uint_to_float_01(x):
     """uint32 -> float32 in [0, 1) with 24-bit mantissa exactness."""
     return (_u32(x) >> 8).to(torch.float32) * (1.0 / (1 << 24))
