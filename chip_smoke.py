@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths (raytracingproject_tpu_torch) on the
+Drives the port's three main paths (raytracingproject_tpu_torch) on the
 card and fails (nonzero exit, no result line) if any phase fails:
 
 1. environment: CUDA present; card name and power limit (nvidia-smi),
@@ -45,14 +45,38 @@ box, with the dispatch the configuration pins: K4 and K3's dual form):
    render; the inputs of each kernel's third call are copied;
 10. main-path shapes: at 65,536 lanes K4 (on the copied input and on
    camera rays) and K3's dual form (on the copied input) are held against
-   their plain versions and both are timed.
+   their plain versions and both are timed;
+
+big_instanced (64 instances of one image-textured sphere on a checkered
+ground plane, a distant sun and a constant sky; two-level cluster tables:
+K5 for every closest hit and every NEE shadow test):
+
+11. kernels vs plain versions on the scene's tables (1,025 clusters in 65
+   superclusters, instance rows): K5 closest and any hit on 65,536 random
+   rays from inside the scene's bounds and 65,536 camera rays; hit masks
+   equal, max |dt| 0 off exact ties, tie lanes held to an exact tie;
+12. accuracy: 64x64, 128 spp, chunk 16, clamp off, against the float64
+   twin raytracingproject_tpu_torch/data/twin_big_instanced.npz (made
+   once on the CPU with the JAX package by tools/rmse_twin.py's method,
+   `python -m tests.test_torch_instanced_render twin f32|f64`; it also
+   holds the JAX package's own float32 render): rmse and the share
+   of pixels off by more than 1e-3 at most twice the JAX render's own;
+13. full width: 256x256, 16 spp, chunk 8 through the CLI code path
+   (example:big_instanced); finite, mean within 0.5% of the JAX package's
+   mean for the same render (JAX_MEAN_BIG_256), K5 launched by this
+   render; the inputs of K5's third call (the second iteration's closest
+   hit) are copied;
+14. main-path shapes: at 65,536 lanes K5 on the copied input (closest) and
+   on sun shadow rays from the camera rays' first hits (any hit) is held
+   against its plain version and both are timed.
 
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. Each
 kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published peaks).
+H100 SXM's published peaks). The script takes about 3 minutes, the
+kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
 describing each kernel, and {"ok": true, "device": {...}}.
@@ -93,16 +117,26 @@ TIE_FRAC_COPLANAR = 2e-3
 # at clamp 0).
 JAX_MEAN_512 = 0.17757781157033317
 JAX_MEAN_VOL_256 = 0.2115986647204958
+# big_instanced 256x256x16, chunks of 8, default clamp (the JAX package's
+# render_samples_regen on the CPU, which walks its packed BVH there;
+# python -m tests.test_torch_instanced_render mean 256 16 8)
+JAX_MEAN_BIG_256 = 0.21052450607052078
+TWIN_BIG = "raytracingproject_tpu_torch/data/twin_big_instanced.npz"
 # the wrappers: kernel name -> (module under ops/, function)
 WRAPPERS = {
     "cluster_walk": ("cluster_walk", "intersect_clusters_walk"),
     "occlusion_walk": ("occlusion_walk", "occlusion_clusters_walk"),
     "tile_walk": ("tile_walk", "intersect_clusters_tile"),
+    "cluster2_walk": ("cluster2_walk", "intersect_clusters2_walk"),
 }
 # operation counts of the walks' two tests (float32 arithmetic and
 # comparisons, counted from csrc/watertight.cuh) and the card's peaks
 SLAB_OPS = 27      # slab_entry: one ray against one cluster box
 TRI_OPS = 110      # wt_tri_v: one ray against one triangle
+# K5 per instance row a lane visits: the w2o transform of origin and
+# direction (33, csrc/cluster2_walk.cu) and a new shear basis (68,
+# wt_setup in csrc/watertight.cuh)
+XFORM_OPS = 33 + 68
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -148,10 +182,10 @@ def median_ms(fn, reps):
     return float(np.median(times))
 
 
-def random_rays(n, rng, dev):
+def random_rays(n, rng, dev, lo=(-300,) * 3, hi=(900,) * 3):
     """Rays as in the JAX package's one-hot walk tests: origins uniform
-    in a box around the scene, isotropic directions."""
-    o = rng.uniform((-300,) * 3, (900,) * 3, (n, 3)).astype(np.float32)
+    in a box around the scene (lo, hi), isotropic directions."""
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (torch.tensor(o, device=dev), torch.tensor(d, device=dev))
@@ -442,7 +476,11 @@ def _plain(name):
 def _positional(name, rec):
     """A recorded call's arguments as the plain version's positional
     arguments, in its order (the integrator passes some by keyword)."""
-    bound = inspect.signature(_plain(name)).bind(*rec["args"], **rec["kw"])
+    params = inspect.signature(_plain(name)).parameters
+    # flags the plain version does not take must be off in the recorded call
+    assert not any(v for k, v in rec["kw"].items() if k not in params)
+    kw = {k: v for k, v in rec["kw"].items() if k in params}
+    bound = inspect.signature(_plain(name)).bind(*rec["args"], **kw)
     bound.apply_defaults()
     return tuple(bound.arguments.values())
 
@@ -554,10 +592,13 @@ def volume_main_path_checks(kg, side, card, rec):
     return timed_cases(cases, n, card)
 
 
-def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128):
+def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128,
+             twin=None, twin_f32=None):
     """The scene's 64x64 x spp render, clamp off, vs the float64 twin."""
     from raytracingproject_tpu_torch.session.session import render
-    twin = np.load(TWIN)[twin_key]
+    if twin is None:
+        twin = np.load(TWIN)[twin_key]
+        twin_f32 = np.load(TWIN_F32)[twin_key]
     scene.integrator.set("sample_clamp_indirect", 0.0)
     scene.device_update()
     kg = scene.make_kernel_globals(dev)
@@ -569,7 +610,7 @@ def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128):
     diff = img.astype(np.float64) - twin
     rmse = float(np.sqrt(np.mean(diff * diff)))
     frac = float((np.abs(diff).sum(-1) > 1e-3).mean())
-    d32 = img.astype(np.float64) - np.load(TWIN_F32)[twin_key]
+    d32 = img.astype(np.float64) - twin_f32
     size = img.shape[0]
     log(f"[accuracy] {twin_key} {size}x{size}x{spp} in {dt:.2f} s: rmse vs "
         f"twin_f64 {rmse:.3e} (gate {rmse_gate}), pixels off >1e-3 "
@@ -582,7 +623,7 @@ def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128):
 
 
 def full_width(card, spec, width, spp, ref_mean, mean_gate, path_kernels,
-               device="cuda"):
+               device="cuda", chunk=16):
     """The full-width render through the CLI code path. Every kernel's
     launch count is set to 0 just before it and read just after; each
     kernel of `path_kernels` must have launched. Returns the counts and
@@ -590,8 +631,8 @@ def full_width(card, spec, width, spp, ref_mean, mean_gate, path_kernels,
     from raytracingproject_tpu_torch.app import cli
     args = cli.build_parser().parse_args(
         [spec, "--samples", str(spp), "--width", str(width), "--height",
-         str(width), "--chunk", "16", "--lanes-per-pixel", "1", "--device",
-         device])
+         str(width), "--chunk", str(chunk), "--lanes-per-pixel", "1",
+         "--device", device])
     with record_calls(path_kernels, RECORD_CALL) as rec:
         for name in WRAPPERS:
             module(name).launches = 0
@@ -599,7 +640,7 @@ def full_width(card, spec, width, spp, ref_mean, mean_gate, path_kernels,
         launches = {name: module(name).launches for name in WRAPPERS}
     mean = float(img.astype(np.float64).mean())
     mean_rel = abs(mean / ref_mean - 1.0)
-    log(f"[render] {spec} {width}x{width}x{spp} chunk 16: "
+    log(f"[render] {spec} {width}x{width}x{spp} chunk {chunk}: "
         f"{st['render_s']:.3f} s, {st['msamples_per_s']:.4f} Msamples/s on "
         f"{card}; host compile {st['compile_s']:.3f} s; mean {mean:.8f} "
         f"(JAX package {ref_mean:.8f}, rel {mean_rel:.2e}); launches "
@@ -611,6 +652,141 @@ def full_width(card, spec, width, spp, ref_mean, mean_gate, path_kernels,
         assert launches[name] > 0, f"{spec}: the render did not launch {name}"
         assert "args" in rec[name], f"{spec}: no {name} call was recorded"
     return launches, rec, st
+
+
+def scene_box(kg):
+    """The union of the cluster boxes: the scene's bounds."""
+    cb = kg["dscene"]["cluster_bounds"].cpu().numpy()
+    return cb[:, :3].min(0), cb[:, 3:].max(0)
+
+
+def k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel=True):
+    """K5 (or, kernel=False, its plain version) on the scene's tables."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    tabs = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]))
+    if kernel:
+        return wrapper("cluster2_walk")(
+            ds["sc_bounds"], *tabs, int(kg["sc_gmax"]), o, d, tmin, tmax,
+            vis, shadow_any_hit=any_hit, has_instances=True)
+    return ci.intersect_clusters(*tabs, o, d, tmin, tmax, vis,
+                                 shadow_any_hit=any_hit, has_instances=True)
+
+
+def cluster2_bound(kg, args, any_hit, out):
+    """(bound ms, bound_by) of one K5 call. Bytes: tables, rays and
+    results once. Operations: every lane tests every supercluster box; a
+    closest-hit lane tests the cluster boxes of each group it enters
+    before its final t, and in each cluster it enters before its final t
+    the instance transform and the triangles (a miss: every group and
+    cluster it enters); an any-hit lane that hits needs one transform and
+    one triangle."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    scb, cb, ctab = ds["sc_bounds"], ds["cluster_bounds"], \
+        ds["cluster_table"]
+    o, d, tmin, tmax, vis = args
+    sc_entry = ci.entry_table(scb[:, :6], o, d, tmin, tmax)
+    c_entry = ci.entry_table(cb, o, d, tmin, tmax)
+    sc_in, c_in = sc_entry < ci.INF, c_entry < ci.INF
+    if not any_hit:
+        sc_in = sc_in & (sc_entry < out["t"][None])
+        c_in = c_in & (c_entry < out["t"][None])
+    gboxes = (sc_in.to(torch.float64)
+              * scb[:, 7].to(torch.float64)[:, None]).sum(0)
+    per_cluster = _prims_per_cluster(ctab, int(kg["cluster_tris"])) \
+        * TRI_OPS + XFORM_OPS
+    row_ops = (c_in.to(torch.float64) * per_cluster[:, None]).sum(0)
+    if any_hit:
+        row_ops = torch.where(out["prim"] >= 0, float(TRI_OPS + XFORM_OPS),
+                              row_ops)
+    n = o.shape[0]
+    ops = n * scb.shape[0] * SLAB_OPS + float(gboxes.sum()) * SLAB_OPS \
+        + float(row_ops.sum())
+    return _bound(_nbytes(scb, cb, ctab, *args, *out.values()), ops)
+
+
+def check_cluster2(kg, n_check, rng):
+    """K5 against its plain version, closest and any hit, on random rays
+    from inside the scene's bounds and on camera rays: hit masks equal,
+    max |dt| 0 off exact ties. Returns max |t| error."""
+    dev = kg["dscene"]["cluster_table"].device
+    side = int(round(n_check ** 0.5))
+    lo, hi = scene_box(kg)
+    err = 0.0
+    for label, (o, d), tmin0 in (
+            ("random", random_rays(n_check, rng, dev, lo, hi), 1e-4),
+            ("camera", camera_rays(kg, side, side, dev), 0.0)):
+        n = o.shape[0]
+        tmin = torch.full((n,), tmin0, device=dev)
+        tmax = torch.full((n,), 1e30, device=dev)
+        vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
+        for any_hit in (False, True):
+            ref = k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel=False)
+            got = k5_call(kg, o, d, tmin, tmax, vis, any_hit)
+            sync()
+            mode = "any-hit" if any_hit else "closest"
+            e = compare_walk(f"cluster2_walk {mode} {label}", ref, got,
+                             any_hit)
+            assert e == 0.0, f"K5 {mode} {label}: |dt| {e} off the ties"
+            err = max(err, e)
+    return {"cluster2_walk": err}
+
+
+def sun_shadow_rays(kg, o, d, rng):
+    """NEE shadow rays toward the distant lamp from the camera rays' first
+    hits (directions from the port's own light sampler); lanes that miss
+    get the empty window [1e-5, 1e-5], as the integrator gives them."""
+    from raytracingproject_tpu_torch.ops import light as light_ops
+    dev = o.device
+    n = o.shape[0]
+    vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
+    hit = k5_call(kg, o, d, torch.zeros(n, device=dev),
+                  torch.full((n,), 1e30, device=dev), vis, False)
+    P = o + hit["t"][:, None] * d
+    u = [torch.tensor(rng.uniform(size=n).astype(np.float32), device=dev)
+         for _ in range(3)]
+    ls = light_ops.sample_light(kg["dscene"], P, *u,
+                                static_kinds=kg["light_kinds"])
+    sd = ls["D"].contiguous()
+    so = (P + sd * 1e-3).contiguous()
+    stmin = torch.full((n,), 1e-5, device=dev)
+    stmax = torch.where(hit["prim"] >= 0, ls["dist"], stmin).contiguous()
+    return so, sd, stmin, stmax
+
+
+def big_main_path_checks(kg, side, rng, card, rec):
+    """At side x side lanes (the render's own width): K5 closest on the
+    render's recorded input, K5 any-hit on sun shadow rays."""
+    ra = inspect.signature(wrapper("cluster2_walk")).bind(
+        *rec["args"], **rec["kw"])
+    ra.apply_defaults()
+    a = ra.arguments
+    n = a["o"].shape[0]
+    assert n == side * side, "recorded call is not full width"
+    assert not a["shadow_any_hit"], "the recorded K5 call is not a closest hit"
+    rvis = a["visibility"]
+    kinds = sorted(int(x) for x in torch.unique(rvis).cpu())
+    log(f"[main-path] recorded K5 input: visibility values {kinds}, lane "
+        f"shares {[round(float((rvis == k).float().mean()), 4) for k in kinds]}")
+    assert len(kinds) > 1, "the recorded K5 call holds no bounce rays"
+    rargs = (a["o"], a["d"], a["tmin"], a["tmax"], a["visibility"])
+    o, d = camera_rays(kg, side, side, a["o"].device)
+    so, sd, stmin, stmax = sun_shadow_rays(kg, o, d, rng)
+    sargs = (so, sd, stmin, stmax,
+             torch.full((n,), 128, dtype=torch.int32, device=o.device))
+
+    def case(args, any_hit, compare):
+        return (lambda: k5_call(kg, *args, any_hit),
+                lambda: k5_call(kg, *args, any_hit, kernel=False),
+                "cluster2_walk", compare,
+                lambda out: cluster2_bound(kg, args, any_hit, out))
+
+    cases = {"K5 closest render": case(rargs, False, compare_hits),
+             "K5 any-hit shadow": case(sargs, True, compare_any_hit)}
+    log(f"[main-path] sun shadow rays: {float((stmax > 1e-5).float().mean()):.4f}"
+        " of the lanes have a segment")
+    return timed_cases(cases, n, card)
 
 
 def main():
@@ -677,14 +853,41 @@ def main():
     v_times, e = volume_main_path_checks(vkg, 256, card, v_rec)
     errs.update({k: max(errs.get(k, 0.0), v) for k, v in e.items()})
 
+    # ---- big_instanced: 11. kernel checks; 12. accuracy; 13. full width;
+    # 14. main-path shapes ----
+    bscene = examples.instanced_scene(256, 256, spp=16, grid=8)
+    bscene.device_update()
+    bkg = bscene.make_kernel_globals(dev)
+    assert "sc_bounds" in bkg["dscene"] and bkg["has_instances"]
+    errs.update(check_cluster2(bkg, N_CHECK, rng))
+    pair = np.load(TWIN_BIG)
+    d32 = pair["f32_jax"] - pair["f64"]
+    jax_rmse = float(np.sqrt(np.mean(d32 * d32)))
+    jax_frac = float((np.abs(d32).sum(-1) > 1e-3).mean())
+    log(f"[accuracy] big_instanced: the JAX package's f32 render vs the "
+        f"twin: rmse {jax_rmse:.3e}, pixels off >1e-3 {jax_frac:.5f}")
+    accuracy(dev, "big_instanced",
+             examples.instanced_scene(64, 64, spp=128, grid=8), {},
+             2.0 * jax_rmse, 2.0 * jax_frac, twin=pair["f64"],
+             twin_f32=pair["f32_jax"])
+    b_launch, b_rec, b_st = full_width(
+        card, "example:big_instanced", 256, 16, JAX_MEAN_BIG_256, 0.005,
+        ("cluster2_walk",), chunk=8)
+    b_times, e = big_main_path_checks(bkg, 256, rng, card,
+                                      b_rec["cluster2_walk"])
+    errs.update({k: max(errs.get(k, 0.0), v) for k, v in e.items()})
+
     by_path = {name: {"glossy_nee_mis": g_launch[name],
-                      "volume_sss": v_launch[name]} for name in WRAPPERS}
+                      "volume_sss": v_launch[name],
+                      "big_instanced": b_launch[name]} for name in WRAPPERS}
     log(f"[render] Msamples/s: glossy_nee_mis {g_st['msamples_per_s']:.4f}, "
-        f"volume_sss {v_st['msamples_per_s']:.4f} ({card})")
-    times = {**g_times, **v_times}
+        f"volume_sss {v_st['msamples_per_s']:.4f}, big_instanced "
+        f"{b_st['msamples_per_s']:.4f} ({card})")
+    times = {**g_times, **v_times, **b_times}
     rows = (("cluster_walk", "pallas_onehot.py:1008", "K2 closest render"),
             ("occlusion_walk", "pallas_cluster.py:811", "K3 dual render"),
-            ("tile_walk", "pallas_cluster.py:253", "K4 closest render"))
+            ("tile_walk", "pallas_cluster.py:253", "K4 closest render"),
+            ("cluster2_walk", "pallas_cluster.py:565", "K5 closest render"))
     kern = []
     for name, tpu, case in rows:
         tm = times[case]

@@ -4,11 +4,15 @@
       --samples 64 --width 512 --height 512 --device cuda --output out.png
   python -m raytracingproject_tpu_torch example:volume_sss \\
       --samples 32 --width 256 --height 256 --device cuda
+  python -m raytracingproject_tpu_torch example:big_instanced \\
+      --samples 16 --width 256 --height 256 --chunk 8 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
 example:volume_sss renders with its pinned dispatch
-(examples.VOLUME_SSS_DISPATCH: K4 walk, K3 occlusion).
+(examples.VOLUME_SSS_DISPATCH: K4 walk, K3 occlusion); example:big_instanced
+is instanced_scene(grid=8), the two-level instanced scene (K5 for every
+closest hit and shadow test).
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ def build_parser():
         prog="raytracingproject_tpu_torch",
         description="PyTorch/CUDA port of the path tracer")
     p.add_argument("scene",
-                   help="'example:cornell[:variant]' | 'example:volume_sss'")
+                   help="'example:cornell[:variant]' | 'example:volume_sss' "
+                   "| 'example:big_instanced'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -44,9 +49,11 @@ def load_scene(spec):
     parts = spec.split(":")
     if parts == ["example", "volume_sss"]:
         return examples.volume_sss_scene(), examples.VOLUME_SSS_DISPATCH
+    if parts == ["example", "big_instanced"]:
+        return examples.instanced_scene(256, 256, spp=16, grid=8), {}
     if len(parts) < 2 or parts[0] != "example" or parts[1] != "cornell":
-        raise SystemExit(f"unknown scene '{spec}' (try example:cornell or "
-                         "example:volume_sss)")
+        raise SystemExit(f"unknown scene '{spec}' (try example:cornell, "
+                         "example:volume_sss or example:big_instanced)")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})
 

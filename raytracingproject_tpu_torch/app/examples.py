@@ -2,11 +2,13 @@
 
 Each scene is built as the JAX package builds it, object for object and
 shader for shader, so both host compiles produce the same tables:
-`cornell_box` (the glossy_nee_mis configuration with spheres="glossy")
-and `volume_sss_scene` (the volume_sss configuration: a homogeneous
-smoke box and a random-walk SSS sphere in the Cornell box). Variants that
-need unported features (glass spheres, an area lamp) raise
-NotImplementedError.
+`cornell_box` (the glossy_nee_mis configuration with spheres="glossy"),
+`volume_sss_scene` (the volume_sss configuration: a homogeneous smoke box
+and a random-walk SSS sphere in the Cornell box) and `instanced_scene`
+(with grid=8 the big_instanced configuration: 64 instances of one
+image-textured sphere on a checkered ground plane under a distant sun and
+a constant sky). Variants that need unported features (glass spheres, an
+area lamp) raise NotImplementedError.
 
 VOLUME_SSS_DISPATCH holds the intersection flags the volume_sss
 configuration renders with (kg.update(VOLUME_SSS_DISPATCH) after
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from raytracingproject_tpu_torch.models import shader_nodes as sn
+from raytracingproject_tpu_torch.models.light import Light
 from raytracingproject_tpu_torch.models.mesh import (
     make_box_mesh, make_plane_mesh, make_sphere_mesh)
 from raytracingproject_tpu_torch.models.object import Object
@@ -167,4 +170,80 @@ def volume_sss_scene(width=256, height=256, spp=32, density=0.004):
     scene.add_object(Object("sss_sphere", s1))
     scene.integrator.set("max_bounce", 8)
     scene.integrator.set("max_transmission_bounce", 16)
+    return scene
+
+
+def background_shader(name, color, strength=1.0):
+    g = ShaderGraph()
+    b = g.add(sn.BackgroundNode(name + "_bg", color=color, strength=strength))
+    g.connect(b, "background", g.output_node, "surface")
+    return Shader(name, g)
+
+
+def checker_shader(name, scale=4.0, c1=(0.8, 0.8, 0.8), c2=(0.15, 0.15, 0.4)):
+    g = ShaderGraph()
+    t = g.add(sn.CheckerTextureNode(name + "_tex", scale=scale, color1=c1,
+                                    color2=c2))
+    d = g.add(sn.DiffuseBsdfNode(name + "_bsdf"))
+    g.connect(t, "color", d, "color")
+    g.connect(d, "bsdf", g.output_node, "surface")
+    return Shader(name, g)
+
+
+def image_texture_shader(name, image):
+    g = ShaderGraph()
+    t = g.add(sn.ImageTextureNode(name + "_tex", image=image))
+    d = g.add(sn.DiffuseBsdfNode(name + "_bsdf"))
+    g.connect(t, "color", d, "color")
+    g.connect(d, "bsdf", g.output_node, "surface")
+    return Shader(name, g)
+
+
+def instanced_scene(width=256, height=256, spp=32, grid=4, nlat=12,
+                    nlon=24):
+    """One sphere geometry instanced grid x grid times over a checkered
+    ground plane, a UV image texture on the spheres, a distant sun and a
+    constant sky. grid=8 (64 x 528 + 2 flat prims, over the flatten
+    limit) keeps the sphere instanced: the big_instanced configuration,
+    two-level cluster tables, K5. grid=4 compiles flattened (8,450 static
+    prims), which needs the JAX package's C++ BVH builder: not ported."""
+    scene = Scene()
+    scene.camera.set("matrix", tfm.look_at((14, -18, 10), (0, 0, 1),
+                                           (0, 0, 1)))
+    scene.camera.set("fov", 0.7)
+    scene.camera.set("width", width)
+    scene.camera.set("height", height)
+
+    ground = checker_shader("ground")
+    scene.add_shader(ground)
+    plane = make_plane_mesh((-30, -30, 0), (60, 0, 0), (0, 60, 0), 0,
+                            "ground")
+    plane.used_shaders = [ground]
+    scene.add_object(Object("ground", plane))
+
+    # procedural uv image for the spheres
+    img = np.zeros((64, 64, 3), np.float32)
+    yy, xx = np.mgrid[0:64, 0:64]
+    img[..., 0] = 0.5 + 0.5 * np.sin(xx * 0.4)
+    img[..., 1] = 0.5 + 0.5 * np.cos(yy * 0.3)
+    img[..., 2] = 0.6
+    mat = image_texture_shader("spheremat", img)
+    scene.add_shader(mat)
+
+    sphere = make_sphere_mesh((0, 0, 0), 1.0, 0, nlat=nlat, nlon=nlon)
+    sphere.set("smooth", np.ones(sphere.num_triangles, bool))
+    sphere.used_shaders = [mat]
+    for i in range(grid):
+        for j in range(grid):
+            t = tfm.compose(
+                tfm.translate((i - grid / 2 + 0.5) * 4.0,
+                              (j - grid / 2 + 0.5) * 4.0, 1.0),
+                tfm.rotate(0.3 * (i + j), (0, 0, 1)))
+            scene.add_object(Object(f"inst_{i}_{j}", sphere, transform=t))
+
+    scene.add_light(Light("sun", light_type="distant", dir=(-0.3, 0.4, -0.85),
+                          strength=(3.0, 2.9, 2.6), angle=0.05))
+    scene.background.shader = background_shader("sky", (0.4, 0.6, 0.9), 0.6)
+    scene.integrator.set("aa_samples", spp)
+    scene.integrator.set("max_bounce", 4)
     return scene

@@ -1,7 +1,7 @@
 """Where the render's time goes on the card.
 
     python -m raytracingproject_tpu_torch.app.profile_render \\
-        [--scene glossy|volume_sss] [--device cuda] \\
+        [--scene glossy|volume_sss|big_instanced] [--device cuda] \\
         [--out profile.json]
 
 Renders one configuration of chip_smoke.py at its full width, one lane
@@ -9,17 +9,21 @@ per pixel, chunk by chunk through ops/integrator.py
 render_samples_regen: `glossy` is the glossy Cornell box
 (example:cornell:glossy) at 512x512 through K2 and K3; `volume_sss` is
 example:volume_sss at 256x256 with its pinned dispatch
-(examples.VOLUME_SSS_DISPATCH) through K4 and K3's dual form.
+(examples.VOLUME_SSS_DISPATCH) through K4 and K3's dual form;
+`big_instanced` is example:big_instanced at 256x256 through K5, which
+answers both the closest hit and the NEE shadow test (two calls per
+iteration).
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
-   synchronize: wavefront iterations (launches of the closest-hit walk; the
-   integrator makes one per iteration) and ms per iteration;
+   synchronize: wavefront iterations (launches of the closest-hit walk over
+   its calls per iteration) and ms per iteration;
 3. one chunk of 4 samples under torch.profiler (CPU and CUDA
    activities). From the device events of key_averages(): device kernels
    per iteration, device busy time, the device idle share (1 - busy / wall
    time of the profiled chunk), the per-call device time of the walk and
-   of K3 in the render, and the device kernels that take the most time.
+   of K3 in the render, the walk's share of an iteration, and the device
+   kernels that take the most time.
 
 Prints one JSON object as its last line, and writes it to --out if given.
 On a CPU device the walks take their plain versions and launch no kernel,
@@ -38,12 +42,16 @@ import torch
 
 K3_KERNEL = "occlusion_walk_kernel"
 TOP = 12   # device kernels listed, by total time
-# scene -> (example spec, width, closest-hit walk module, its kernel name)
+# scene -> (example spec, width, closest-hit walk module, its kernel name,
+# the walk's calls per wavefront iteration)
 SCENES = {
     "glossy": ("example:cornell:glossy", 512, "cluster_walk",
-               "cluster_walk_kernel"),
+               "cluster_walk_kernel", 1),
     "volume_sss": ("example:volume_sss", 256, "tile_walk",
-                   "tile_walk_kernel"),
+                   "tile_walk_kernel", 1),
+    # K5 answers the closest hit and the shadow test of every iteration
+    "big_instanced": ("example:big_instanced", 256, "cluster2_walk",
+                      "cluster2_walk_kernel", 2),
 }
 
 
@@ -79,7 +87,7 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
     from raytracingproject_tpu_torch.device import get_device
     from raytracingproject_tpu_torch.ops import integrator as integ
     from raytracingproject_tpu_torch.session.session import pixel_wavefront
-    spec, full_width, walk_name, walk_kernel = SCENES[scene]
+    spec, full_width, walk_name, walk_kernel, per_iter = SCENES[scene]
     walk = importlib.import_module(
         f"raytracingproject_tpu_torch.ops.{walk_name}")
     width = width or full_width
@@ -96,7 +104,7 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
         before = walk.launches
         integ.render_samples_regen(kg, px, py, pidx, start, n)
         _sync(dev)
-        return walk.launches - before
+        return (walk.launches - before) // per_iter
 
     # ---- 1. warm-up ----
     chunk(0, profile_spp)
@@ -149,9 +157,14 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
         "k3_ms_per_call": per_call(K3_KERNEL)[1],
         "k3_calls_per_iteration": (per_call(K3_KERNEL)[0] / p_iters
                                    if p_iters else None),
+        "walk_calls_per_iteration": per_iter,
+        "walk_share_of_iteration": None,
         "walk_k3_share_of_iteration": None,
         "top_kernels": [{"name": n[:120], "calls": c, "ms": t / 1e3}
                         for n, c, t in events[:TOP]]})
+    if out["ms_per_iteration"] and out["walk_ms_per_call"]:
+        out["walk_share_of_iteration"] = (
+            out["walk_ms_per_call"] * per_iter / out["ms_per_iteration"])
     if out["ms_per_iteration"] and out["walk_ms_per_call"] \
             and out["k3_ms_per_call"]:
         out["walk_k3_share_of_iteration"] = (

@@ -47,6 +47,11 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
         _P]},
     "tile_walk.cu": {"rt_tile_walk": _WALK},
+    # sc_bounds cbounds ctable SC C W ct gmax o d tmin tmax vis n any_hit
+    # instances t prim u v obj stream
+    "cluster2_walk.cu": {"rt_cluster2_walk": [
+        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P]},
 }
 
 _lib = None

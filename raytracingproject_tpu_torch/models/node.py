@@ -21,6 +21,7 @@ class SocketType:
     POINT = "point"
     NORMAL = "normal"
     ENUM = "enum"
+    STRING = "string"
     TRANSFORM = "transform"
     BOOLEAN_ARRAY = "boolean[]"
     INT_ARRAY = "int[]"
@@ -48,6 +49,8 @@ class SocketType:
                 a = np.repeat(a, 3)
             assert a.size == 3, f"expected 3 floats, got {a.size}"
             return a
+        if t == SocketType.STRING:
+            return str(value)
         if t == SocketType.ENUM:
             if value not in self.enum_values:
                 raise ValueError(

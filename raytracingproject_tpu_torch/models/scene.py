@@ -3,21 +3,35 @@ raytracingproject_tpu/models/scene.py `Scene.device_update` +
 `make_kernel_globals`).
 
 The card has no JAX, so the port owns its host compile. It is numpy
-only and covers the port's scenes: static single-user meshes baked to
-world space, the SAH BVH build and cluster cut (the port's own
-bvh/build.py and bvh/clusters.py), the cluster tables, the wide
-prim/object tables, the all-triangle mesh light distribution, and for
-volume scenes the volume-boundary tables (prim_is_boundary,
-cluster_boundary), the per-shader volume lists and shadow-invisible
-volume-only objects. Every array is built with the same numpy
-operations in the same order as the JAX package, so the tables come out
-bit-identical (tests/test_torch_scene.py,
-tests/test_torch_volume_render.py). Instancing, motion, hair,
-subdivision, displacement, lamps, background maps, the light tree and
-scenes of 2,048 prims or more (the JAX package's C++ BVH builder) raise
-NotImplementedError. A scene of at most 1,024 prims records use_brute
-(the JAX package's dense-sweep choice) but still packs its clusters; only
-the dense dispatch itself raises.
+only and covers the port's scenes:
+- geometry: static single-user meshes baked to world space, and
+  instancing (the JAX package's static vs instanced split :485-497): a
+  geometry with several users in a scene of more than
+  AUTO_FLATTEN_MAX_PRIMS flat prims keeps one object-space BLAS, and each
+  user becomes an instance row; the SAH build and cluster cut are the
+  port's own bvh/build.py and bvh/clusters.py;
+- the cluster tables (instance clusters carry world bounds and their
+  instance's w2o) and, past CLUSTER_MAX_SINGLE_LEVEL clusters, the
+  two-level supercluster table sc_bounds and sc_gmax (the K5 walk);
+- the wide prim/object tables, with object transforms for instanced
+  objects;
+- the light distribution over emissive triangles and lamps, the lamp
+  table and the per-entry row snapshots;
+- the background shader slot and the texture store (ImageManager);
+- for volume scenes the volume-boundary tables, the per-shader volume
+  lists and shadow-invisible volume-only objects.
+Every array is built with the same numpy operations in the same order as
+the JAX package, so the tables come out bit-identical
+(tests/test_torch_scene.py, tests/test_torch_volume_render.py,
+tests/test_torch_instanced.py). The TLAS and the packed-BVH traversal
+arrays are not built: no render path of the port reads them.
+
+Raising NotImplementedError: motion, hair, subdivision, displacement,
+portals, background lamps (the importance map), IES profiles, the light
+tree, transparent film, image files, and static scenes of 2,048 prims or
+more (the JAX package's C++ BVH builder). A scene of at most 1,024 prims
+records use_brute (the JAX package's dense-sweep choice) but still packs
+its clusters; only the dense dispatch itself raises.
 
 `make_kernel_globals(device)` returns the `KernelGlobals` dict: arrays
 as torch tensors on `device` under "dscene", statics under the JAX key
@@ -32,9 +46,12 @@ import torch
 
 from raytracingproject_tpu_torch.bvh import build as bvh_build
 from raytracingproject_tpu_torch.bvh import clusters as cl_mod
+from raytracingproject_tpu_torch.models import light as light_mod
 from raytracingproject_tpu_torch.models import shader_nodes as sn
+from raytracingproject_tpu_torch.models.background import Background
 from raytracingproject_tpu_torch.models.camera import Camera
 from raytracingproject_tpu_torch.models.film import Film
+from raytracingproject_tpu_torch.models.image import ImageManager, TextureStore
 from raytracingproject_tpu_torch.models.integrator import Integrator
 from raytracingproject_tpu_torch.models.object import (
     PATH_RAY_ALL_VISIBILITY, PATH_RAY_SHADOW)
@@ -48,13 +65,17 @@ BRUTE_FORCE_MAX_PRIMS = 16384
 CLUSTER_MIN_PRIMS = 384
 BRUTE_VS_CLUSTER_PRIMS = 1024
 CLUSTER_MAX_SINGLE_LEVEL = 640
+CLUSTER2_GROUP_TARGET = 64
 AUTO_FLATTEN_MAX_PRIMS = 16384
 
 # kernel-globals arrays the port's render reads
 KG_ARRAYS = ("prim_table", "object_table", "cluster_bounds",
              "cluster_table", "cluster_boundary", "prim_is_boundary",
              "light_dist_type", "light_dist_cdf", "light_entries",
-             "le_prim_rows", "le_obj_rows", "bg_pmf")
+             "le_prim_rows", "le_obj_rows", "le_lamp_rows", "lamp_table",
+             "bg_pmf")
+# ... and those only some scenes have (two-level cluster tables)
+KG_OPTIONAL = ("sc_bounds",)
 
 
 def default_surface_shader():
@@ -72,21 +93,13 @@ def default_background_shader():
     return Shader("default_background", g)
 
 
-class Background:
-    """World settings: the background shader (None = black, no entry in
-    the light distribution) and film transparency."""
-
-    def __init__(self):
-        self.shader = None
-        self.transparent = False
-
-
 class Scene:
     def __init__(self):
         self.camera = Camera("camera")
         self.film = Film("film")
         self.integrator = Integrator("integrator")
         self.background = Background()
+        self.image_manager = ImageManager()
         self.objects = []
         self.lights = []
         self.shaders = []
@@ -104,20 +117,36 @@ class Scene:
         self.objects.append(obj)
         return obj
 
+    def add_light(self, light):
+        self.lights.append(light)
+        return light
+
     # ------------------------------------------------------------------
     def device_update(self):
-        """Host compile: shaders -> geometry/clusters -> lights ->
-        camera/film/integrator (the JAX package's order)."""
-        if self.lights:
-            raise NotImplementedError("lamps are not ported (mesh lights "
-                                      "only)")
-        if self.background.shader is not None:
-            raise NotImplementedError("background shaders are not ported")
+        """Host compile: shaders and images -> geometry/clusters -> lights
+        -> camera/film/integrator (the JAX package's order)."""
         if self.background.transparent:
             raise NotImplementedError("transparent film is not ported")
+        if self.integrator.use_light_tree:
+            raise NotImplementedError("the light tree is not ported")
+        if self.background.shader is not None:
+            self.add_shader(self.background.shader)
+        for li in self.lights:
+            if li.shader is not None:
+                self.add_shader(li.shader)
         for slot, sh in enumerate(self.shaders):
             sh.slot = slot
             sh.analyze()
+            for node in sh.graph.nodes:
+                if isinstance(node, sn.ImageTextureNode):
+                    if node.slot < 0:
+                        src = node.image if node.image is not None \
+                            else node.filename
+                        node.slot = -1 if src is None or (
+                            isinstance(src, str) and not src) \
+                            else self.image_manager.add_image(src)
+                    if node.use_auto_mip and node.slot >= 0:
+                        self.image_manager.want_mips.add(node.slot)
         packed = self._pack_geometry()
         lightd = self._pack_lights(packed)
         arrays = dict(packed)
@@ -126,22 +155,80 @@ class Scene:
             _boundary_tables(self.shaders, arrays["prim_table"],
                              arrays["cluster_table"],
                              packed["__cluster_tris__"])
+        tex_data, tex_sizes = self.image_manager.device_update()
+        bg = self.background.shader
         self.dscene = {
-            "arrays": {k: arrays[k] for k in KG_ARRAYS},
+            "arrays": {k: arrays[k] for k in KG_ARRAYS + KG_OPTIONAL
+                       if k in arrays},
             "cam": self.camera.update(),
             "kint": self.integrator.kernel_record(),
             "filter_table": self.film.build_filter_table(),
-            "background_shader": (self.default_background.slot
+            "tex_data": tex_data,
+            "tex_sizes": tex_sizes,
+            "background_shader": (bg.slot if bg is not None
+                                  else self.default_background.slot
                                   if self.default_background in self.shaders
                                   else -1),
             "use_brute": packed["__use_brute__"],
+            "has_instances": packed["__has_instances__"],
             "cluster_tris": packed["__cluster_tris__"],
+            "sc_gmax": packed["__sc_gmax__"],
             "light_kinds": lightd["__light_kinds__"],
             "volume_stack_depth": int(self.integrator.volume_stack_depth),
         }
         return self.dscene
 
     # ------------------------------------------------------------------
+    def _mesh_arrays(self, mesh, obj_idx, world_tfm):
+        """Per-triangle arrays of one mesh (world space when world_tfm is
+        given, else object space): verts, vertex normals, corner uvs,
+        shader slots, smooth flags and the object index."""
+        v = mesh.verts_array
+        t = mesh.triangles_array
+        if len(t) == 0:
+            return None
+        vn_attr = mesh.attribute_get("std_vertex_normal")
+        vn = mesh.compute_vertex_normals() if vn_attr is None \
+            else vn_attr.data
+        if world_tfm is not None:
+            v = tfm.transform_point(world_tfm, v)
+            itt = np.linalg.inv(tfm.to_4x4(world_tfm))[:3, :3].T
+            vn = vn @ itt.T
+            ln = np.linalg.norm(vn, axis=-1, keepdims=True)
+            vn = vn / np.maximum(ln, 1e-12)
+        uv_attr = mesh.attribute_get("std_uv")
+        if uv_attr is None:
+            uv = np.tile(np.array([[0, 0], [1, 0], [1, 1]], np.float32),
+                         (len(t), 1, 1))
+        elif uv_attr.element == "corner":
+            uv = uv_attr.data.reshape(-1, 3, 2)[: len(t)]
+        else:
+            uv = uv_attr.data[t]
+        return {"verts": v[t], "vnormal": vn[t], "uv": uv,
+                "shader": np.array(
+                    [self._shader_slot(mesh, s)
+                     for s in np.asarray(mesh.shader, np.int32)], np.int32),
+                "smooth": np.asarray(mesh.smooth, bool),
+                "object": np.full(len(t), obj_idx, np.int32)}
+
+    @staticmethod
+    def _block(parts):
+        """One BVH block over concatenated mesh arrays, in build order."""
+        def cat(key, tail, dtype=np.float32):
+            if parts:
+                return np.concatenate([p[key] for p in parts]).astype(dtype)
+            return np.zeros((0,) + tail, dtype)
+
+        verts = cat("verts", (3, 3))
+        bvh = bvh_build.build_bvh(verts.min(1), verts.max(1))
+        order = bvh.prim_order
+        return {"children": bvh.children, "verts": verts[order],
+                "vnormal": cat("vnormal", (3, 3))[order],
+                "uv": cat("uv", (3, 2))[order],
+                "shader": cat("shader", (), np.int32)[order],
+                "smooth": cat("smooth", (), bool)[order],
+                "object": cat("object", (), np.int32)[order]}
+
     def _pack_geometry(self):
         objects = self.objects
         nobj = max(len(objects), 1)
@@ -150,66 +237,55 @@ class Scene:
             if obj.use_motion:
                 raise NotImplementedError("object motion is not ported")
             geom_users.setdefault(id(obj.geometry), []).append(oi)
+        # the flattened size decides whether shared geometry is baked to
+        # world space or instanced
         total_flat = sum(o.geometry.num_triangles for o in objects)
-        if total_flat > AUTO_FLATTEN_MAX_PRIMS and any(
-                len(u) > 1 for u in geom_users.values()):
-            raise NotImplementedError("instanced geometry is not ported")
-
-        tri_verts, tri_vnormal, tri_uv = [], [], []
-        prim_shader, prim_smooth, prim_object = [], [], []
+        flatten_all = total_flat <= AUTO_FLATTEN_MAX_PRIMS
+        static_objs = []
+        instanced_geoms = {}  # id(geom) -> (geom, [object indices])
         for oi, obj in enumerate(objects):
-            mesh = obj.geometry
-            world_tfm = np.asarray(obj.transform, np.float32)
-            v = mesh.verts_array
-            t = mesh.triangles_array
-            if len(t) == 0:
-                continue
-            vn_attr = mesh.attribute_get("std_vertex_normal")
-            vn = mesh.compute_vertex_normals() if vn_attr is None \
-                else vn_attr.data
-            v = tfm.transform_point(world_tfm, v)
-            itt = np.linalg.inv(tfm.to_4x4(world_tfm))[:3, :3].T
-            vn = vn @ itt.T
-            ln = np.linalg.norm(vn, axis=-1, keepdims=True)
-            vn = vn / np.maximum(ln, 1e-12)
-            tri_verts.append(v[t])
-            tri_vnormal.append(vn[t])
-            uv_attr = mesh.attribute_get("std_uv")
-            if uv_attr is not None:
-                if uv_attr.element == "corner":
-                    tri_uv.append(uv_attr.data.reshape(-1, 3, 2)[: len(t)])
-                else:
-                    tri_uv.append(uv_attr.data[t])
+            if len(geom_users[id(obj.geometry)]) == 1 or flatten_all:
+                static_objs.append(oi)
             else:
-                tri_uv.append(np.tile(
-                    np.array([[0, 0], [1, 0], [1, 1]], np.float32),
-                    (len(t), 1, 1)))
-            prim_shader.append(np.array(
-                [self._shader_slot(mesh, s)
-                 for s in np.asarray(mesh.shader, np.int32)], np.int32))
-            prim_smooth.append(np.asarray(mesh.smooth, bool))
-            prim_object.append(np.full(len(t), oi, np.int32))
+                instanced_geoms.setdefault(
+                    id(obj.geometry), (obj.geometry, []))[1].append(oi)
+        has_instances = len(instanced_geoms) > 0
 
-        def cat(lst, shape_tail, dtype=np.float32):
-            if lst:
-                return np.concatenate(lst).astype(dtype)
-            return np.zeros((0,) + shape_tail, dtype)
-
-        static_verts = cat(tri_verts, (3, 3))
-        P = len(static_verts)
-        if P == 0:
+        # static merged geometry (world space), then one object-space
+        # BLAS per instanced geometry
+        blocks = []
+        static_parts = [p for p in (
+            self._mesh_arrays(objects[oi].geometry, oi,
+                              np.asarray(objects[oi].transform, np.float32))
+            for oi in static_objs) if p is not None]
+        if static_parts:
+            blocks.append(self._block(static_parts))
+        geom_blas = {}
+        for gid, (geom, _users) in instanced_geoms.items():
+            geom_blas[gid] = len(blocks)
+            blocks.append(self._block([self._mesh_arrays(geom, -1, None)]))
+        if not blocks:
             raise NotImplementedError("empty scenes are not ported")
-        lo, hi = static_verts.min(1), static_verts.max(1)
-        sb = bvh_build.build_bvh(lo, hi)
-        order = sb.prim_order
-        packed = {
-            "tri_verts": static_verts[order],
-            "tri_vnormal": cat(tri_vnormal, (3, 3))[order],
-            "tri_uv": cat(tri_uv, (3, 2))[order],
-            "prim_shader": cat(prim_shader, (), np.int32)[order],
-            "prim_smooth": cat(prim_smooth, (), bool)[order],
-            "prim_object_packed": cat(prim_object, (), np.int32)[order],
-        }
+
+        # instance rows: (w2o, block, object index); the static block is
+        # instance 0 with the identity
+        instance_rows = []
+        if has_instances:
+            if static_parts:
+                instance_rows.append((tfm.identity(), 0, -1))
+            for gid, (_geom, users) in instanced_geoms.items():
+                for oi in users:
+                    instance_rows.append((tfm.inverse(np.asarray(
+                        objects[oi].transform, np.float32)),
+                        geom_blas[gid], oi))
+        prim_bases, pb = [], 0
+        for blk in blocks:
+            prim_bases.append(pb)
+            pb += len(blk["verts"])
+        P = pb
+        packed = {k: np.concatenate([blk[k] for blk in blocks])
+                  for k in ("verts", "vnormal", "uv", "shader", "smooth",
+                            "object")}
 
         # ---- object tables (merged objects: identity packed transforms)
         obj_tfm = np.tile(tfm.identity(), (nobj, 1, 1))
@@ -222,8 +298,12 @@ class Scene:
         obj_blo = np.zeros((nobj, 3), np.float32)
         obj_bhi = np.ones((nobj, 3), np.float32)
         for oi, obj in enumerate(objects):
-            obj_itfm_gen[oi] = tfm.inverse(
-                np.asarray(obj.transform, np.float32))
+            t = np.asarray(obj.transform, np.float32)
+            inv = tfm.inverse(t)
+            merged = oi in static_objs
+            obj_tfm[oi] = tfm.identity() if merged else t
+            obj_itfm[oi] = tfm.identity() if merged else inv
+            obj_itfm_gen[oi] = inv
             obj_color[oi] = np.asarray(obj.color, np.float32)
             obj_random[oi] = (obj.random_id & 0xFFFF) / 65535.0
             vis = np.uint32(obj.visibility)
@@ -236,41 +316,97 @@ class Scene:
             obj_blo[oi], obj_bhi[oi] = obj.geometry.compute_bounds()
 
         # ---- cluster tables ----
-        if P < CLUSTER_MIN_PRIMS:
+        if not has_instances and P < CLUSTER_MIN_PRIMS:
             raise NotImplementedError(
                 f"{P} prims: the dense sweep (K1) path is not ported")
+        two_level = False
         for ct_size in (16, 32, 64):
-            cuts = cl_mod.cut_clusters(sb.children, ct_size)
-            if len(cuts) <= CLUSTER_MAX_SINGLE_LEVEL:
+            block_cuts = [cl_mod.cut_clusters(blk["children"], ct_size)
+                          for blk in blocks]
+            total_c = (sum(len(block_cuts[r[1]]) for r in instance_rows)
+                       if has_instances else len(block_cuts[0]))
+            if total_c <= CLUSTER_MAX_SINGLE_LEVEL:
                 break
         else:
-            raise NotImplementedError(
-                "two-level cluster tables (K5) are not ported")
-        tv = packed["tri_verts"]
-        po = packed["prim_object_packed"]
+            if total_c > 512 * 512:
+                raise NotImplementedError(
+                    f"{total_c} clusters: past the two-level tables' "
+                    "capacity the JAX package walks its packed BVH, which "
+                    "is not ported")
+            two_level = True
         cds = []
-        for (s, c) in cuts:
-            verts = tv[s:s + c]
-            objv = po[s:s + c]
-            allv = verts.reshape(-1, 3)
-            cds.append({"verts": verts, "prim": np.arange(s, s + c),
-                        "obj": objv,
-                        "vis": obj_visibility[np.maximum(objv, 0)],
-                        "lo": allv.min(0), "hi": allv.max(0)})
+        if has_instances:
+            for (w2o, bi, oi) in instance_rows:
+                blk = blocks[bi]
+                o2w = (np.asarray(objects[oi].transform, np.float32)
+                       if oi >= 0 else tfm.identity())
+                for (s, c) in block_cuts[bi]:
+                    verts = blk["verts"][s:s + c]
+                    objv = (np.full(c, oi, np.int32) if oi >= 0
+                            else blk["object"][s:s + c])
+                    vlo = verts.reshape(-1, 3).min(0)
+                    vhi = verts.reshape(-1, 3).max(0)
+                    corners = np.array(
+                        [[x, y, z] for x in (vlo[0], vhi[0])
+                         for y in (vlo[1], vhi[1])
+                         for z in (vlo[2], vhi[2])], np.float32)
+                    wc = tfm.transform_point(o2w, corners)
+                    cds.append({"verts": verts,
+                                "prim": prim_bases[bi] + np.arange(s, s + c),
+                                "obj": objv,
+                                "vis": obj_visibility[np.maximum(objv, 0)],
+                                "w2o": w2o, "lo": wc.min(0), "hi": wc.max(0)})
+        else:
+            tv, po = packed["verts"], packed["object"]
+            for (s, c) in block_cuts[0]:
+                verts = tv[s:s + c]
+                objv = po[s:s + c]
+                allv = verts.reshape(-1, 3)
+                cds.append({"verts": verts, "prim": np.arange(s, s + c),
+                            "obj": objv,
+                            "vis": obj_visibility[np.maximum(objv, 0)],
+                            "lo": allv.min(0), "hi": allv.max(0)})
         cb, ctab, ct_used = ci.pack_cluster_table(cds)
         packed["cluster_bounds"] = cb
         packed["cluster_table"] = ctab
         packed["__cluster_tris__"] = ct_used
-        packed["__use_brute__"] = P <= BRUTE_VS_CLUSTER_PRIMS
+        packed["__sc_gmax__"] = 0
+        if two_level:
+            gmax = max(CLUSTER2_GROUP_TARGET, -(-total_c // 512))
+            gmax = -(-gmax // 8) * 8
+            if has_instances:
+                # each instance's clusters are consecutive: chunk them
+                groups, base = [], 0
+                for r in instance_rows:
+                    nci = len(block_cuts[r[1]])
+                    for k in range(0, nci, gmax):
+                        groups.append((base + k, min(gmax, nci - k)))
+                    base += nci
+            else:
+                super_cuts = cl_mod.cut_clusters(blocks[0]["children"],
+                                                 gmax * ct_size)
+                groups = cl_mod.group_superclusters(block_cuts[0],
+                                                    super_cuts, gmax)
+            if len(groups) > 512:
+                # plain chunking keeps SC <= 512
+                gmax = -(-(-(-total_c // 512)) // 8) * 8
+                groups = [(k, min(gmax, total_c - k))
+                          for k in range(0, total_c, gmax)]
+            packed["sc_bounds"] = cl_mod.supercluster_bounds(cb, groups)
+            packed["__sc_gmax__"] = gmax
+        packed["__has_instances__"] = has_instances
+        # instanced triangles exist only in object space: never dense
+        packed["__use_brute__"] = (not has_instances
+                                   and P <= BRUTE_VS_CLUSTER_PRIMS)
 
         # ---- wide lookup tables (ops/lookup.py layout) ----
         pt = np.zeros((P, lk.PT_COLS), np.float32)
-        pt[:, lk.PT_V0:lk.PT_V0 + 9] = packed["tri_verts"].reshape(P, 9)
-        pt[:, lk.PT_VN:lk.PT_VN + 9] = packed["tri_vnormal"].reshape(P, 9)
-        pt[:, lk.PT_UV:lk.PT_UV + 6] = packed["tri_uv"].reshape(P, 6)
-        pt[:, lk.PT_SHADER] = packed["prim_shader"]
-        pt[:, lk.PT_SMOOTH] = packed["prim_smooth"]
-        pt[:, lk.PT_OBJECT] = packed["prim_object_packed"]
+        pt[:, lk.PT_V0:lk.PT_V0 + 9] = packed["verts"].reshape(P, 9)
+        pt[:, lk.PT_VN:lk.PT_VN + 9] = packed["vnormal"].reshape(P, 9)
+        pt[:, lk.PT_UV:lk.PT_UV + 6] = packed["uv"].reshape(P, 6)
+        pt[:, lk.PT_SHADER] = packed["shader"]
+        pt[:, lk.PT_SMOOTH] = packed["smooth"]
+        pt[:, lk.PT_OBJECT] = packed["object"]
         packed["prim_table"] = pt
 
         ot = np.zeros((nobj, lk.OT_COLS), np.float32)
@@ -300,11 +436,12 @@ class Scene:
 
     # ------------------------------------------------------------------
     def _pack_lights(self, packed):
-        """Flat emission distribution over emissive triangles."""
-        entries = []  # (type 1 = tri, prim id, power)
-        prim_shader = packed["prim_shader"]
-        prim_obj = packed["prim_object_packed"]
-        tri_verts = packed["tri_verts"]
+        """Flat emission distribution over emissive triangles, then lamps
+        (type 1 = triangle, 0 = lamp; weight = power)."""
+        entries = []  # (type, prim or lamp index, power)
+        prim_shader = packed["shader"]
+        prim_obj = packed["object"]
+        tri_verts = packed["verts"]
         P = len(prim_shader)
         prim_emission = np.zeros((P, 3), np.float32)
         emis_by_slot = {}
@@ -313,6 +450,7 @@ class Scene:
             if est is not None and np.any(est > 0):
                 emis_by_slot[sh.slot] = est
         for slot, est in emis_by_slot.items():
+            # instanced prims (object -1) are never lights
             idxs = np.nonzero((prim_shader == slot) & (prim_obj >= 0))[0]
             prim_emission[idxs] = est
             for pi in idxs:
@@ -322,6 +460,52 @@ class Scene:
                 lum = float(0.2126 * est[0] + 0.7152 * est[1]
                             + 0.0722 * est[2])
                 entries.append((1, int(pi), max(lum * area * np.pi, 1e-12)))
+
+        nl = max(len(self.lights), 1)
+        la = {
+            "type": np.zeros(nl, np.int32),
+            "co": np.zeros((nl, 3), np.float32),
+            "dir": np.zeros((nl, 3), np.float32),
+            "size": np.zeros(nl, np.float32),
+            "axisu": np.zeros((nl, 3), np.float32),
+            "axisv": np.zeros((nl, 3), np.float32),
+            "sizeu": np.ones(nl, np.float32),
+            "sizev": np.ones(nl, np.float32),
+            "strength": np.zeros((nl, 3), np.float32),
+            "angle": np.zeros(nl, np.float32),
+            "spot_angle": np.zeros(nl, np.float32),
+            "spot_smooth": np.zeros(nl, np.float32),
+            "pmf": np.zeros(nl, np.float32),
+        }
+        for li, light in enumerate(self.lights):
+            ltype = light.get_enum_int("light_type")
+            if light.is_portal:
+                raise NotImplementedError("light portals are not ported")
+            if ltype == light_mod.LIGHT_BACKGROUND:
+                raise NotImplementedError(
+                    "background lamps (the importance map) are not ported")
+            if light.ies.strip():
+                raise NotImplementedError("IES profiles are not ported")
+            la["type"][li] = ltype
+            la["co"][li] = np.asarray(light.co, np.float32)
+            d = np.asarray(light.dir, np.float32)
+            la["dir"][li] = d / max(np.linalg.norm(d), 1e-12)
+            la["size"][li] = light.size
+            la["axisu"][li] = np.asarray(light.axisu, np.float32)
+            la["axisv"][li] = np.asarray(light.axisv, np.float32)
+            la["sizeu"][li] = light.sizeu
+            la["sizev"][li] = light.sizev
+            strength = np.asarray(light.strength, np.float32)
+            if light.shader is not None:
+                est = estimate_constant_emission(light.shader)
+                if est is not None:
+                    strength = est
+            la["strength"][li] = strength
+            la["angle"][li] = light.angle
+            la["spot_angle"][li] = light.spot_angle
+            la["spot_smooth"][li] = light.spot_smooth
+            entries.append((0, li, light.total_power()))
+
         D = len(entries)
         if D == 0:
             raise NotImplementedError("scenes without emitters are not "
@@ -331,35 +515,62 @@ class Scene:
         cdf[-1] = 1.0
         pmfs = (powers / powers.sum()).astype(np.float32)
         prim_light_pmf = np.zeros(max(P, 1), np.float32)
-        for ei, (_etype, eid, _p) in enumerate(entries):
-            prim_light_pmf[eid] = pmfs[ei]
+        for ei, (etype, eid, _p) in enumerate(entries):
+            if etype == 1:
+                prim_light_pmf[eid] = pmfs[ei]
+            else:
+                la["pmf"][eid] = pmfs[ei]
 
         pt = packed["prim_table"]
         pt[:P, lk.PT_EMISSION:lk.PT_EMISSION + 3] = prim_emission[:P]
         pt[:P, lk.PT_LIGHT_PMF] = prim_light_pmf[:P]
+        lt = np.zeros((nl, lk.LT_COLS), np.float32)
+        lt[:, lk.LT_TYPE] = la["type"]
+        lt[:, lk.LT_CO:lk.LT_CO + 3] = la["co"]
+        lt[:, lk.LT_DIR:lk.LT_DIR + 3] = la["dir"]
+        lt[:, lk.LT_SIZE] = la["size"]
+        lt[:, lk.LT_AXISU:lk.LT_AXISU + 3] = la["axisu"]
+        lt[:, lk.LT_AXISV:lk.LT_AXISV + 3] = la["axisv"]
+        lt[:, lk.LT_SIZEU] = la["sizeu"]
+        lt[:, lk.LT_SIZEV] = la["sizev"]
+        lt[:, lk.LT_STRENGTH:lk.LT_STRENGTH + 3] = la["strength"]
+        lt[:, lk.LT_ANGLE] = la["angle"]
+        lt[:, lk.LT_SPOT_ANGLE] = la["spot_angle"]
+        lt[:, lk.LT_SPOT_SMOOTH] = la["spot_smooth"]
+        lt[:, lk.LT_PMF] = la["pmf"]
         types = np.array([e[0] for e in entries], np.int32)
         ids = np.array([e[1] for e in entries], np.int32)
         out = {
             "light_dist_cdf": cdf.astype(np.float32),
             "light_dist_type": types,
             "bg_pmf": np.float32(0.0),
+            "lamp_table": lt,
             "light_entries": np.stack(
                 [types.astype(np.float32), ids.astype(np.float32),
                  pmfs.astype(np.float32), np.zeros(D, np.float32)], -1),
-            "__light_kinds__": tuple("tri" for _ in entries),
+            # per-entry kinds ("tri" or the lamp type), static for the
+            # sampler's branch choice (ops/light.py)
+            "__light_kinds__": tuple(
+                "tri" if int(e[0]) == 1 else int(la["type"][int(e[1])])
+                for e in entries),
         }
         # per-entry row snapshots: the NEE pick fetches D-row tables by
-        # entry index instead of the (P, 36) prim table
+        # entry index instead of the prim, object and lamp tables
         ot = packed["object_table"]
-        le_prim = pt[np.minimum(np.maximum(ids, 0), len(pt) - 1)]
+        p0 = np.maximum(np.where(types == 1, ids, 0), 0)
+        le_prim = pt[np.minimum(p0, len(pt) - 1)]
         ob = np.maximum(le_prim[:, lk.PT_OBJECT].astype(np.int64), 0)
         le_obj = ot[np.minimum(ob, len(ot) - 1)]
+        l0 = np.maximum(np.where(types == 1, 0, ids), 0)
+        le_lamp = lt[np.minimum(l0, len(lt) - 1)]
         if not (D <= lk.ONEHOT_MAX_ROWS and np.isfinite(le_prim).all()
-                and np.isfinite(le_obj).all()):
+                and np.isfinite(le_obj).all()
+                and np.isfinite(le_lamp).all()):
             raise NotImplementedError("light entry rows must be small and "
                                       "finite")
         out["le_prim_rows"] = le_prim.astype(np.float32)
         out["le_obj_rows"] = le_obj.astype(np.float32)
+        out["le_lamp_rows"] = le_lamp.astype(np.float32)
         return out
 
     # ------------------------------------------------------------------
@@ -368,7 +579,15 @@ class Scene:
         under the JAX package's key names."""
         assert self.dscene is not None, "call device_update() first"
         ds = self.dscene
-        return _assemble_kg(ds["arrays"], ds, self.shaders, device)
+        textures = TextureStore.from_numpy(
+            ds["tex_data"], ds["tex_sizes"], device,
+            mips=self.image_manager.mip_slots,
+            # the camera's pixel angle: the checker's footprint estimate
+            pixel_angle=float(self.camera.fov) / max(
+                int(self.camera.width), 1))
+        return _assemble_kg(ds["arrays"], ds, self.shaders, textures,
+                            [int(li.get_enum_int("light_type"))
+                             for li in self.lights], device)
 
 
 def _boundary_tables(shaders, prim_table, ctab, ct):
@@ -418,23 +637,25 @@ def shader_statics(shaders):
     }
 
 
-def _assemble_kg(arrays, ds, shaders, device):
+def _assemble_kg(arrays, ds, shaders, textures, lamp_types, device):
     return {
         "dscene": {k: torch.tensor(np.array(arrays[k]), device=device)
-                   for k in KG_ARRAYS},
+                   for k in KG_ARRAYS + KG_OPTIONAL if k in arrays},
         "cam": ds["cam"],
         "kint": ds["kint"],
         "filter_table": torch.tensor(np.array(ds["filter_table"]),
                                      device=device),
         "shaders": shaders,
+        "textures": textures,
         "background_shader": int(ds["background_shader"]),
         "use_brute": bool(ds["use_brute"]),
         "cluster_tris": int(ds["cluster_tris"]),
+        "sc_gmax": int(ds["sc_gmax"]),
         "cluster_motion": False,
-        "has_instances": False,
+        "has_instances": bool(ds["has_instances"]),
         "film_transparent": False,
-        "num_area_lamps": 0,
-        "lamp_types": [],
+        "num_area_lamps": lamp_types.count(light_mod.LIGHT_AREA),
+        "lamp_types": lamp_types,
         "light_tree": None,
         "light_kinds": ds["light_kinds"],
         "volume_stack_depth": int(ds["volume_stack_depth"]),
@@ -465,7 +686,7 @@ def estimate_constant_emission(shader):
 
 # statics the JAX package sets that this slice has no path for: a
 # scene that turns one on cannot be rendered by the port
-_UNPORTED_FLAGS = ("has_instances", "cluster_motion", "has_motion",
+_UNPORTED_FLAGS = ("cluster_motion", "has_motion",
                    "has_deform_motion", "has_shadow_catcher",
                    "film_transparent", "light_passes", "aux_passes",
                    "fused_nee", "sorted_shading")
@@ -486,6 +707,8 @@ def _convert_shader(jshader):
         node = cls(jn.name)
         for sname in cls._socket_map:
             node.set(sname, getattr(jn, sname))
+        if isinstance(node, sn.ImageTextureNode):
+            node.image, node.slot = jn.image, jn.slot
         nodes[id(jn)] = g.add(node)
     for (to_id, to_sock), (jfrom, from_sock) in jshader.graph.links.items():
         g.links[(id(nodes[to_id]), to_sock)] = (nodes[id(jfrom)],
@@ -503,16 +726,24 @@ def kg_from_jax(kg_jax, device):
     for k in _UNPORTED_FLAGS:
         if kg_jax.get(k):
             raise NotImplementedError(f"kg['{k}'] is not ported")
-    if kg_jax.get("lamp_types") or kg_jax.get("light_tree") is not None:
-        raise NotImplementedError("lamps and the light tree are not ported")
-    arrays = {k: np.asarray(kg_jax["dscene"][k]) for k in KG_ARRAYS}
+    if kg_jax.get("light_tree") is not None:
+        raise NotImplementedError("the light tree is not ported")
+    arrays = {k: np.asarray(kg_jax["dscene"][k])
+              for k in KG_ARRAYS + KG_OPTIONAL if k in kg_jax["dscene"]}
     ds = {"cam": {k: np.asarray(v) for k, v in kg_jax["cam"].items()},
           "kint": dict(kg_jax["kint"]),
           "filter_table": np.asarray(kg_jax["filter_table"]),
           "background_shader": kg_jax["background_shader"],
           "use_brute": kg_jax["use_brute"],
+          "has_instances": kg_jax.get("has_instances", False),
           "cluster_tris": kg_jax["cluster_tris"],
+          "sc_gmax": kg_jax.get("sc_gmax", 0),
           "light_kinds": kg_jax["light_kinds"],
           "volume_stack_depth": kg_jax["volume_stack_depth"]}
     shaders = [_convert_shader(s) for s in kg_jax["shaders"]]
-    return _assemble_kg(arrays, ds, shaders, device)
+    jt = kg_jax["textures"]
+    textures = TextureStore.from_numpy(
+        np.asarray(jt.data), jt.sizes, device, mips=getattr(jt, "mips", {}),
+        pixel_angle=getattr(jt, "pixel_angle", None))
+    return _assemble_kg(arrays, ds, shaders, textures,
+                        list(kg_jax.get("lamp_types") or []), device)

@@ -11,8 +11,15 @@ padded with prim id -1.
 `intersect_clusters` and `occlusion_clusters` are plain torch: every
 lane walks its clusters front to back through a (C, N) entry-distance
 table. They are what the CPU runs and what the CUDA kernels
-(ops/cluster_walk.py K2, ops/occlusion_walk.py K3) are held against.
-Instanced and motion rows are not in this slice.
+(ops/cluster_walk.py K2, ops/tile_walk.py K4, ops/cluster2_walk.py K5,
+ops/occlusion_walk.py K3) are held against.
+
+Instancing: an instanced scene packs every instance's BLAS clusters with
+world-space bounds and the instance's world->object transform in the
+row's w2o columns; with has_instances the walk transforms each lane's
+ray by the visited row's w2o (t is preserved: the direction is not
+renormalised) before the watertight test. Motion rows (a per-triangle
+shutter delta block) are not in the port and raise.
 """
 
 from __future__ import annotations
@@ -35,9 +42,12 @@ def row_width(cluster_tris):
 
 def pack_cluster_table(clusters_np):
     """Host-side packing. clusters_np: list of dicts with keys verts
-    (ct_i, 3, 3), prim (ct_i,), obj (ct_i,), vis (ct_i,), lo (3,), hi (3,).
+    (ct_i, 3, 3) [object space], prim (ct_i,), obj (ct_i,), vis (ct_i,),
+    lo (3,), hi (3,) and optionally w2o (3, 4) (None or absent: identity).
     Returns (cluster_bounds (C, 6) f32, cluster_table (C, W) f32,
     cluster_tris)."""
+    if any(cl.get("verts_t1") is not None for cl in clusters_np):
+        raise NotImplementedError("motion cluster rows are not ported")
     c = len(clusters_np)
     ct = max(max((len(cl["prim"]) for cl in clusters_np), default=1), 1)
     table = np.zeros((c, row_width(ct)), np.float32)
@@ -45,7 +55,10 @@ def pack_cluster_table(clusters_np):
     for i, cl in enumerate(clusters_np):
         bounds[i, :3] = cl["lo"]
         bounds[i, 3:] = cl["hi"]
-        table[i, 0:12] = np.eye(3, 4, dtype=np.float32).reshape(12)
+        if cl.get("w2o") is not None:
+            table[i, 0:12] = np.asarray(cl["w2o"], np.float32).reshape(12)
+        else:
+            table[i, 0:12] = np.eye(3, 4, dtype=np.float32).reshape(12)
         k = len(cl["prim"])
         v = np.asarray(cl["verts"], np.float32)
         tri = np.concatenate(
@@ -94,6 +107,22 @@ def _lane_ws(o, d):
                 else v[:, None]) for k, v in ws.items()}
 
 
+def _row_w2o_ray(rows, o, d):
+    """Each lane's ray in the object space of its row: the w2o columns
+    (3x4, row-major) applied as m[0]*ox + m[1]*oy + m[2]*oz + m[3], the
+    operation order of the JAX package's walks and of csrc/cluster2_walk.cu
+    (so both round alike)."""
+    m = rows[:, 0:12]
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    oo = torch.stack([m[:, 4 * r] * ox + m[:, 4 * r + 1] * oy
+                      + m[:, 4 * r + 2] * oz + m[:, 4 * r + 3]
+                      for r in range(3)], -1)
+    dd = torch.stack([m[:, 4 * r] * dx + m[:, 4 * r + 1] * dy
+                      + m[:, 4 * r + 2] * dz for r in range(3)], -1)
+    return oo, dd
+
+
 def _chunked(fn, n, args, lane_args):
     """Run fn over lane chunks of CHUNK; lane_args index into args."""
     if n <= CHUNK:
@@ -110,22 +139,25 @@ def _chunked(fn, n, args, lane_args):
 
 
 def intersect_clusters(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                       visibility, shadow_any_hit=False):
+                       visibility, shadow_any_hit=False, has_instances=False):
     """Closest hit (or any hit) over the cluster tables.
 
     o, d (N, 3) f32; tmin, tmax (N,) f32; visibility (N,) int. Returns
     dict t, u, v (N,) f32 and prim, object (N,) int32 (-1 on a miss; t
     is min(tmax, RAY_TMAX) on a miss). Each lane visits its clusters in
     entry order (ties: highest cluster id first, as the JAX walk does)
-    and retires every cluster whose entry is behind the best hit."""
+    and retires every cluster whose entry is behind the best hit. With
+    has_instances each row's triangles are tested against the lane's ray
+    transformed by that row's w2o."""
     return _chunked(
-        lambda *a: _intersect_chunk(*a, shadow_any_hit=shadow_any_hit),
+        lambda *a: _intersect_chunk(*a, shadow_any_hit=shadow_any_hit,
+                                    has_instances=has_instances),
         o.shape[0], (cbounds, ctable, cluster_tris, o, d, tmin, tmax,
                      visibility), {3, 4, 5, 6, 7})
 
 
 def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
-                     shadow_any_hit=False):
+                     shadow_any_hit=False, has_instances=False):
     n, c = o.shape[0], cbounds.shape[0]
     dev = o.device
     entry = entry_table(cbounds, o, d, tmin, tmax)
@@ -147,6 +179,8 @@ def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
             break
         cid = torch.where(entry == e_min[None], cids, -1).max(0).values
         rows = ctable[cid.clamp(min=0)]
+        if has_instances:
+            ws = _lane_ws(*_row_w2o_ray(rows, o, d))
         v0c, e1c, e2c = _row_tris(rows, ct)
         valid, t, u, v = isect.wt_block(ws, v0c, e1c, e2c, tmin[:, None],
                                         bt[:, None])

@@ -7,9 +7,12 @@ _clamp_contrib :420).
 `make_path_kernel` returns (start_paths, step): start_paths creates a
 fresh per-lane path state from camera rays; step advances every lane one
 bounce -- intersect, the volume segment (homogeneous media and the
-random walk of subsurface scattering, :666-783), background, surface
-emission with MIS, NEE with MIS and a shadow test (for volume scenes the
-dual sweep with medium attenuation and equiangular NEE, :1141-1540),
+random walk of subsurface scattering, :666-783), the background shader on
+a miss (:799-826; textures included), surface emission with MIS, NEE
+with MIS over emissive triangles and distant lamps and a shadow test
+(a distant lamp's shadow ray runs to RAY_TMAX, :1194-1201; for volume
+scenes the dual sweep with medium attenuation and equiangular NEE,
+:1141-1540),
 BSDF or phase-function bounce with SSS entry and the volume stack
 (:1540-1760), Russian roulette. `render_samples_regen` keeps the
 wavefront full by restarting dead lanes on their pixel's next sample
@@ -17,20 +20,26 @@ wavefront full by restarting dead lanes on their pixel's next sample
 the same per-sample accumulation order as the JAX package.
 
 Not ported, and raising: heterogeneous media, volume NEE without the
-dual sweep, AO/bevel nodes, bump, aux and light passes, shadow catchers,
-holdouts, transparent shadows, fused NEE and the branched integrator.
+dual sweep, background light sampling (bg_pmf > 0), AO/bevel nodes, bump,
+aux and light passes, shadow catchers, holdouts, transparent shadows,
+fused NEE and the branched integrator.
 
-Intersection dispatch follows the JAX package's flags and precedence:
-kg["use_brute"] selects the dense sweep (K1, not ported: raises); else
-kg["pallas_onehot"] (default "auto" = on) the per-lane walk K2
-(ops/cluster_walk.py); else kg["pallas_clusters"] (default "auto" = on)
-the tile-shared walk K4 (ops/tile_walk.py); with both False the plain
-walk ops/cluster_intersect.py runs, on CPU tensors only. The NEE shadow
-test and the volume dual sweep go through K3 (ops/occlusion_walk.py)
-when kg["pallas_occlusion"] allows (default: every cluster scene that is
-not use_brute); a surface scene with it off takes the closest-hit
-walk's any-hit mode. On CUDA tensors the walks launch their kernels; on
-CPU tensors they run their plain torch versions.
+Intersection dispatch follows the JAX package's flags and precedence
+(ops/integrator.py :129-270 there): kg["use_brute"] selects the dense
+sweep (K1, not ported: raises). Two-level tables (sc_bounds, big and
+instanced scenes): kg["pallas_onehot2"] (opt-in) selects K6, not ported:
+raises; else kg["pallas_clusters2"] (default "auto" = on) the two-level
+walk K5 (ops/cluster2_walk.py). Single-level tables: kg["pallas_onehot"]
+(default "auto" = on) the per-lane walk K2 (ops/cluster_walk.py); else
+kg["pallas_clusters"] (default "auto" = on) the tile-shared walk K4
+(ops/tile_walk.py). With the chosen kernel's flag False the plain walk
+ops/cluster_intersect.py runs, on CPU tensors only. The NEE shadow test
+and the volume dual sweep go through K3 (ops/occlusion_walk.py) when
+kg["pallas_occlusion"] allows (default: every single-level cluster scene
+that is not use_brute; never on two-level tables); otherwise the shadow
+test is the closest-hit walk's any-hit mode (K5's on big_instanced). On
+CUDA tensors the walks launch their kernels; on CPU tensors they run
+their plain torch versions.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from raytracingproject_tpu_torch.models import object as ob
 from raytracingproject_tpu_torch.ops import bsdf as bsdf_ops
 from raytracingproject_tpu_torch.ops import camera as cam_ops
 from raytracingproject_tpu_torch.ops import closures as cl
+from raytracingproject_tpu_torch.ops import cluster2_walk
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk
 from raytracingproject_tpu_torch.ops import film as film_ops
@@ -80,10 +90,9 @@ def _check_cluster_scene(kg):
     if kg["use_brute"]:
         raise NotImplementedError("the dense sweep (K1) path is not ported")
     if "cluster_bounds" not in ds or int(kg.get("cluster_tris", 0)) <= 0:
-        raise NotImplementedError("scene has no single-level cluster tables")
-    if kg.get("has_instances") or kg.get("cluster_motion"):
-        raise NotImplementedError("instance / motion cluster rows are not "
-                                  "ported")
+        raise NotImplementedError("scene has no cluster tables")
+    if kg.get("cluster_motion"):
+        raise NotImplementedError("motion cluster rows are not ported")
 
 
 def _flag(kg, name):
@@ -93,32 +102,49 @@ def _flag(kg, name):
 
 
 def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
-    """Closest hit (any hit with shadow=True) through K2, K4 or, on the
-    CPU with both off, the plain walk."""
+    """Closest hit (any hit with shadow=True) through K5 on two-level
+    tables, K2 or K4 on single-level ones, or, on the CPU with the
+    kernel's flag off, the plain walk."""
     _check_cluster_scene(kg)
     ds = kg["dscene"]
+    inst = bool(kg.get("has_instances", False))
     args = (ds["cluster_bounds"], ds["cluster_table"],
             int(kg["cluster_tris"]), o, d, tmin, tmax, visibility)
-    if _flag(kg, "pallas_onehot"):
-        return cluster_walk.intersect_clusters_walk(*args,
-                                                    shadow_any_hit=shadow)
-    if _flag(kg, "pallas_clusters"):
-        return tile_walk.intersect_clusters_tile(*args,
-                                                 shadow_any_hit=shadow)
+    if "sc_bounds" in ds:
+        if bool(kg.get("pallas_onehot2", False)):  # opt-in only
+            raise NotImplementedError(
+                "the two-level one-hot walk (K6, pallas_onehot2) is not "
+                "ported")
+        if _flag(kg, "pallas_clusters2"):
+            return cluster2_walk.intersect_clusters2_walk(
+                ds["sc_bounds"], *args[:3], int(kg["sc_gmax"]), *args[3:],
+                shadow_any_hit=shadow, has_instances=inst)
+        kernel_flags = "pallas_clusters2 (K5)"
+    elif _flag(kg, "pallas_onehot"):
+        return cluster_walk.intersect_clusters_walk(
+            *args, shadow_any_hit=shadow, has_instances=inst)
+    elif _flag(kg, "pallas_clusters"):
+        return tile_walk.intersect_clusters_tile(
+            *args, shadow_any_hit=shadow, has_instances=inst)
+    else:
+        kernel_flags = "pallas_onehot (K2) or pallas_clusters (K4)"
     if o.device.type != "cpu":
         raise NotImplementedError(
             "the plain cluster walk is not a render path on the card: set "
-            "pallas_onehot (K2) or pallas_clusters (K4)")
-    return ci.intersect_clusters(*args, shadow_any_hit=shadow)
+            + kernel_flags)
+    return ci.intersect_clusters(*args, shadow_any_hit=shadow,
+                                 has_instances=inst)
 
 
 def _use_occlusion_walk(kg):
     """K3 for the NEE shadow test and the volume dual sweep: "auto"
-    follows the main dispatch (every cluster scene that is not
-    use_brute); True forces it wherever cluster tables exist."""
+    follows the main dispatch (every single-level cluster scene that is
+    not use_brute); True forces it wherever single-level cluster tables
+    exist. Never on two-level tables: K3 walks every cluster of the
+    table, which the two-level scenes are too big for."""
     ds = kg["dscene"]
     if "cluster_boundary" not in ds or "cluster_bounds" not in ds \
-            or int(kg.get("cluster_tris", 0)) <= 0:
+            or int(kg.get("cluster_tris", 0)) <= 0 or "sc_bounds" in ds:
         return False
     mode = kg.get("pallas_occlusion", "auto")
     return (not kg["use_brute"]) if mode == "auto" else bool(mode)
@@ -133,7 +159,8 @@ def _occlusion(kg, o, d, tmin, tmax_closest, tmax_any):
         ds["cluster_bounds"], ds["cluster_table"], ds["cluster_boundary"],
         int(kg["cluster_tris"]), o, d, tmin, tmax_closest=tmax_closest,
         tmax_any=tmax_any, vis_closest=ob.PATH_RAY_CAMERA,
-        vis_any=ob.PATH_RAY_SHADOW)
+        vis_any=ob.PATH_RAY_SHADOW,
+        has_instances=bool(kg.get("has_instances", False)))
 
 
 def _shadow_blocked(kg, o, d, tmin, tmax):
@@ -435,6 +462,7 @@ def make_path_kernel(kg, px, py, pixel_index):
         miss = alive & ~found & ~scattered
         bg = shade_ops.eval_background(kg["shaders"],
                                        kg["background_shader"], st["d"],
+                                       textures=kg.get("textures"),
                                        path_flag=st["path_flag"])
         contrib = _clamp_contrib(throughput * bg, clamp_val)
         L = torch.where(miss[:, None], L + contrib, L)
@@ -444,7 +472,8 @@ def make_path_kernel(kg, px, py, pixel_index):
         # ---- shading ----
         sd = shade_ops.shader_setup(ds, hit, st["o"], st["d"],
                                     time=st["time"], ray_depth=bounce,
-                                    path_flag=st["path_flag"])
+                                    path_flag=st["path_flag"],
+                                    textures=kg.get("textures"))
         closures = shade_ops.eval_shaders(kg["shaders"], sd, sd.shader)
         if has_volume:
             # volume-only materials: their surfaces are transparent

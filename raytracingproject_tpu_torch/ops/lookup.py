@@ -39,6 +39,23 @@ OT_FLAGS = 47
 OT_PARTICLE = 48   # 48:62
 OT_COLS = 62
 
+# lamp_table column layout
+LT_TYPE = 0
+LT_CO = 1          # 1:4
+LT_DIR = 4         # 4:7
+LT_SIZE = 7
+LT_AXISU = 8       # 8:11
+LT_AXISV = 11      # 11:14
+LT_SIZEU = 14
+LT_SIZEV = 15
+LT_STRENGTH = 16   # 16:19
+LT_ANGLE = 19
+LT_SPOT_ANGLE = 20
+LT_SPOT_SMOOTH = 21
+LT_PMF = 22
+LT_IES = 23        # > 0: row index + 1 of an IES grid (not ported)
+LT_COLS = 24
+
 
 def lookup_rows(table, idx):
     """Fetch rows `idx` (any shape) from `table` (P, C) -> (*idx, C)."""

@@ -4,9 +4,11 @@ eval_background :513).
 
 `shader_setup` fetches the hit prims' and objects' wide-table rows and
 builds the ShaderData view; `eval_shaders` evaluates every scene shader
-over the wavefront and selects per lane. The ShaderData here carries the
-fields this slice's nodes and integrator read; texture coordinates,
-curves, vertex colors and bump data are not part of it.
+over the wavefront and selects per lane; `eval_background` evaluates the
+world shader for rays that leave the scene. The ShaderData here carries
+the fields the port's nodes and integrator read, the texture coordinates
+(uv, generated, the world->generated transform) and the texture store
+included; curves, vertex colors and bump data are not part of it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class ShaderData:
     Ng: Any = None           # (N, 3) geometric normal, faced toward I
     Ns: Any = None           # (N, 3) unflipped smooth normal
     I: Any = None            # (N, 3) toward the viewer (-ray dir)
+    uv: Any = None           # (N, 2) interpolated texture coordinates
+    generated: Any = None    # (N, 3) object-space coords over the bounds
+    P_object: Any = None     # (N, 3) object-space position
     time: Any = None
     ray_length: Any = None
     ray_depth: Any = None
@@ -40,12 +45,14 @@ class ShaderData:
     backfacing: Any = None
     prim_row: Any = None     # fetched prim_table rows (light MIS reuses)
     object_tfm: Any = None   # (N, 3, 4) object -> world
+    gen_tfm: Any = None      # (N, 3, 4) world P -> generated coords
+    textures: Any = None     # models/image.py TextureStore
     batch_shape: tuple = ()
     device: Any = None
 
 
 def shader_setup(dscene, hit, ray_o, ray_d, time=None, ray_depth=None,
-                 path_flag=None):
+                 path_flag=None, textures=None):
     """ShaderData for hit lanes (missed lanes carry values the caller
     must keep masked)."""
     n = ray_o.shape[0]
@@ -56,6 +63,7 @@ def shader_setup(dscene, hit, ray_o, ray_d, time=None, ray_depth=None,
     orow = lk.lookup_rows(dscene["object_table"], obj)
     tv = prow[:, lk.PT_V0:lk.PT_V0 + 9].reshape(n, 3, 3)
     vn = prow[:, lk.PT_VN:lk.PT_VN + 9].reshape(n, 3, 3)
+    tuv = prow[:, lk.PT_UV:lk.PT_UV + 6].reshape(n, 3, 2)
     shader = prow[:, lk.PT_SHADER].to(torch.int32)
     smooth = prow[:, lk.PT_SMOOTH] > 0.5
     otfm = lk.mat34(orow[:, lk.OT_TFM:lk.OT_TFM + 12])
@@ -71,12 +79,28 @@ def shader_setup(dscene, hit, ray_o, ray_d, time=None, ray_depth=None,
     Ns = um.safe_normalize(um.mat33T_dir(oitfm, Ns_obj))
     # the exact ray equation for P avoids re-transform rounding
     P = ray_o + hit["t"][:, None] * ray_d
+    # texture space is the object's original space, also for geometry
+    # baked to world space (OT_ITFM_GEN keeps the pre-merge inverse)
+    gen_itfm = lk.mat34(orow[:, lk.OT_ITFM_GEN:lk.OT_ITFM_GEN + 12])
+    P_gen = um.mat34_point(gen_itfm, P)
     I = -ray_d
     backfacing = um.dot(Ng, I) < 0.0
     Ngf = torch.where(backfacing[:, None], -Ng, Ng)
     Nf = torch.where(um.dot(Ns, I)[:, None] < 0.0, -Ns, Ns)
+    uv = w * tuv[:, 0] + u * tuv[:, 1] + v * tuv[:, 2]
+    # generated coords: object-space position over the geometry bounds,
+    # and the world -> generated affine map gen = S * (gen_itfm @ P - lo)
+    glo = orow[:, lk.OT_BOUNDS_LO:lk.OT_BOUNDS_LO + 3]
+    ghi = orow[:, lk.OT_BOUNDS_HI:lk.OT_BOUNDS_HI + 3]
+    generated = um.safe_divide(P_gen - glo, torch.clamp(ghi - glo, min=1e-12),
+                               0.5)
+    inv_ext = 1.0 / torch.clamp(ghi - glo, min=1e-12)
+    gen_tfm = torch.cat([gen_itfm[:, :, :3] * inv_ext[:, :, None],
+                         ((gen_itfm[:, :, 3] - glo) * inv_ext)[:, :, None]],
+                        -1)
     return ShaderData(
-        P=P, N=Nf, Ng=Ngf, Ns=Ns, I=I,
+        P=P, N=Nf, Ng=Ngf, Ns=Ns, I=I, uv=uv, generated=generated,
+        P_object=P_gen,
         time=time if time is not None else torch.zeros(n, device=dev),
         ray_length=hit["t"],
         ray_depth=(ray_depth if ray_depth is not None
@@ -86,7 +110,7 @@ def shader_setup(dscene, hit, ray_o, ray_d, time=None, ray_depth=None,
                                    device=dev)),
         prim=hit["prim"], shader=shader, object_index=hit["object"],
         backfacing=backfacing, prim_row=prow, object_tfm=otfm,
-        batch_shape=(n,), device=dev)
+        gen_tfm=gen_tfm, textures=textures, batch_shape=(n,), device=dev)
 
 
 def eval_shaders(shaders, sd, shader_id):
@@ -102,10 +126,10 @@ def eval_shaders(shaders, sd, shader_id):
     return out
 
 
-def eval_background(shaders, background_shader_slot, ray_d,
+def eval_background(shaders, background_shader_slot, ray_d, textures=None,
                     path_flag=None):
     """Background radiance for missed rays (zero without a world
-    shader, which is this slice's case)."""
+    shader)."""
     n = ray_d.shape[0]
     dev = ray_d.device
     zeros = torch.zeros((n, 3), device=dev)
@@ -113,6 +137,7 @@ def eval_background(shaders, background_shader_slot, ray_d,
         return zeros
     sd = ShaderData(
         P=zeros, N=-ray_d, Ng=-ray_d, Ns=-ray_d, I=-ray_d,
+        uv=torch.zeros((n, 2), device=dev), generated=ray_d, P_object=ray_d,
         time=torch.zeros(n, device=dev),
         ray_length=torch.full((n,), um.RAY_TMAX, device=dev),
         ray_depth=torch.zeros(n, dtype=torch.int32, device=dev),
@@ -124,5 +149,5 @@ def eval_background(shaders, background_shader_slot, ray_d,
                           device=dev),
         object_index=torch.full((n,), -1, dtype=torch.int32, device=dev),
         backfacing=torch.zeros(n, dtype=torch.bool, device=dev),
-        batch_shape=(n,), device=dev)
+        textures=textures, batch_shape=(n,), device=dev)
     return shaders[background_shader_slot].evaluate_surface(sd)["emission"]

@@ -121,6 +121,14 @@ def sample_cos_hemisphere(n, u1, u2):
     return d, z * M_1_PI
 
 
+def sample_uniform_sphere(u1, u2):
+    """Uniform direction on the unit sphere."""
+    z = 1.0 - 2.0 * u1
+    r = safe_sqrt(1.0 - z * z)
+    phi = M_2PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
 def triangle_area(v0, v1, v2):
     return 0.5 * length(cross(v1 - v0, v2 - v0))
 

@@ -1,8 +1,8 @@
 """Affine transforms as 3x4 matrices, host side (JAX counterpart: the
 NumPy half of raytracingproject_tpu/utils/transform.py).
 
-Only what the host scene compile needs: construction, composition,
-inversion, look-at, point transforms and the motion decomposition the
+Only what the host scene compile needs: construction (identity,
+translation, rotation), composition, inversion, look-at, point transforms and the motion decomposition the
 camera record carries. Same NumPy operations in the same order as the
 JAX package, so the compiled scene tables come out bit-identical.
 """
@@ -24,6 +24,30 @@ def to_4x4(t):
     m = np.eye(4, dtype=np.float64)
     m[:3] = np.asarray(t, np.float64)
     return m
+
+
+def translate(x, y=None, z=None):
+    if y is None:
+        x, y, z = x
+    t = identity()
+    t[:, 3] = (x, y, z)
+    return t
+
+
+def rotate(angle, axis):
+    """Rotation by `angle` radians about `axis`."""
+    axis = np.asarray(axis, np.float64)
+    n = np.linalg.norm(axis)
+    if n == 0.0:
+        return identity()
+    x, y, z = axis / n
+    s, c = np.sin(angle), np.cos(angle)
+    t = 1.0 - c
+    return np.array([
+        [x * x * t + c, x * y * t - z * s, x * z * t + y * s, 0.0],
+        [y * x * t + z * s, y * y * t + c, y * z * t - x * s, 0.0],
+        [z * x * t - y * s, z * y * t + x * s, z * z * t + c, 0.0],
+    ], dtype=np.float32)
 
 
 def compose(a, b):

@@ -2,7 +2,9 @@
 the card: K2 (ops/cluster_walk.py, closest and any hit) and K3
 (ops/occlusion_walk.py, surface and dual windows), 65,536 rays through
 the glossy Cornell box's cluster tables, and K4 (ops/tile_walk.py,
-closest and any hit) through the glossy and the volume_sss tables. K3's
+closest and any hit) through the glossy and the volume_sss tables, and
+K5 (ops/cluster2_walk.py, closest and any hit, instance rows) through the
+big_instanced two-level tables. K3's
 dual form runs on a seeded random volume-boundary table (the glossy
 scene's own is all zeros), so both of its minima are exercised. Kernel
 and plain version share one operation order and the kernels build with
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from raytracingproject_tpu_torch.app import examples
+from raytracingproject_tpu_torch.ops import cluster2_walk as k5
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk as k2
 from raytracingproject_tpu_torch.ops import occlusion_walk as k3
@@ -48,9 +51,18 @@ def kg_volume():
     return s.make_kernel_globals("cuda")
 
 
-def _rays(seed):
+@pytest.fixture(scope="module")
+def kg_instanced():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    s = examples.instanced_scene(64, 64, spp=2, grid=8)
+    s.device_update()
+    return s.make_kernel_globals("cuda")
+
+
+def _rays(seed, lo=-300.0, hi=900.0):
     r = np.random.default_rng(seed)
-    o = r.uniform((-300,) * 3, (900,) * 3, (N, 3)).astype(np.float32)
+    o = r.uniform((lo,) * 3, (hi,) * 3, (N, 3)).astype(np.float32)
     d = r.normal(size=(N, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax_any = np.where(r.uniform(size=N) < 0.5, r.uniform(10, 800, N),
@@ -130,3 +142,37 @@ def test_occlusion_walk_kernel(kg, form):
     if form == "dual":
         assert (rb < 1e29).float().mean().item() > 0.01
         assert (ro < 1e29).float().mean().item() > 0.01
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster2_walk_kernel(kg_instanced, any_hit):
+    """K5 on the big_instanced tables (1,025 clusters in 65 superclusters,
+    instance rows), rays from inside the scene's bounds."""
+    ds = kg_instanced["dscene"]
+    o, d, tmax_any, _ = _rays(5, lo=-20.0, hi=20.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    vis = torch.ones(N, dtype=torch.int32, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"],
+            kg_instanced["cluster_tris"], o, d, tmin, tmax, vis)
+    before = k5.launches
+    got = k5.intersect_clusters2_walk(
+        ds["sc_bounds"], *args[:3], kg_instanced["sc_gmax"], *args[3:],
+        shadow_any_hit=any_hit, has_instances=True)
+    ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit,
+                                has_instances=True)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert (ref["prim"] >= 0).float().mean().item() > 0.05
+    assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
+    if any_hit:
+        return
+    same = (got["prim"] == ref["prim"]) & (got["object"] == ref["object"])
+    assert (~same).float().mean().item() <= 1e-4
+    torch.testing.assert_close(got["t"][~same], ref["t"][~same], rtol=1e-6,
+                               atol=1e-4)
+    torch.testing.assert_close(got["t"][same], ref["t"][same], rtol=0,
+                               atol=0)
+    for k in ("u", "v"):
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=0,
+                                   atol=1e-5)

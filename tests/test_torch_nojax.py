@@ -1,8 +1,9 @@
 """The port runs where JAX and the JAX package are not installed (the GPU
 machine has no JAX): in a subprocess whose import system refuses jax and
 raytracingproject_tpu, every module of raytracingproject_tpu_torch
-imports, and the glossy scene and the volume_sss scene (with its pinned
-dispatch) compile and render 8x8, 2-spp images on the CPU. The sources
+imports, and the glossy scene, the volume_sss scene (with its pinned
+dispatch) and the big_instanced scene compile and render 8x8, 2-spp
+images on the CPU. The sources
 import neither jax nor anything of the JAX package."""
 
 import os
@@ -44,8 +45,11 @@ kg = vs.make_kernel_globals("cpu")
 kg.update(examples.VOLUME_SSS_DISPATCH)
 vimg = render(vs, samples=2, chunk=2, device="cpu", kg=kg)
 assert vimg.shape == (8, 8, 3) and np.isfinite(vimg).all() and vimg.mean() > 0
+bimg = render(examples.instanced_scene(8, 8, spp=2, grid=8), samples=2,
+              chunk=2, device="cpu")
+assert bimg.shape == (8, 8, 3) and np.isfinite(bimg).all() and bimg.mean() > 0
 assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
-print("NOJAX_OK", float(img.mean()), float(vimg.mean()))
+print("NOJAX_OK", float(img.mean()), float(vimg.mean()), float(bimg.mean()))
 """
 
 
