@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths (raytracingproject_tpu_torch) on the
+Drives the port's six main paths (raytracingproject_tpu_torch) on the
 card and fails (nonzero exit, no result line) if any phase fails:
 
 1. environment: CUDA present; card name and power limit (nvidia-smi),
@@ -70,12 +70,56 @@ K5 for every closest hit and every NEE shadow test):
    on sun shadow rays from the camera rays' first hits (any hit) is held
    against its plain version and both are timed.
 
+cornell_diffuse (the Cornell box with its two boxes, 36 prims: the dense
+sweep K1 for every closest hit and, in its any-hit mode, every NEE shadow
+test):
+
+15. K1's closest, any-hit, dual and Moeller-Trumbore modes vs their plain
+   versions (ops/intersect.py) on the scene's 36 triangles (a seeded
+   boundary mask planted for the dual form), 65,536 random rays with mixed
+   per-lane visibility and 65,536 camera rays: prims, t, u, v equal to
+   the bit, masks equal;
+16. accuracy: 64x64, 128 spp, chunk 16, clamp off, against
+   twin_f64.npz["cornell_diffuse"] (rmse <= 5.7e-5, <= 0.07% of pixels off
+   by more than 1e-3);
+17. full width: 512x512, 64 spp, chunk 32 through the CLI code path
+   (example:cornell); finite, mean within 0.5% of the JAX package's mean
+   for the same render (JAX_MEAN_CORNELL_512), K1's closest and any-hit
+   modes launched by this render; the inputs of each mode's third call
+   are copied;
+18. main-path shapes: at 262,144 lanes the two modes are held against
+   their plain versions on the copied inputs and timed, and so is the
+   Moeller-Trumbore mode on the copied closest-hit rays;
+
+volume_sss under the host compile's own dispatch (1,008 prims: K1 for
+every closest hit and, in its dual form, both volume-NEE sweeps):
+
+19. K1's four modes vs their plain versions on the scene's 1,008
+   triangles and its real boundary mask, as in 15;
+20. accuracy: 64x64, 128 spp against twin_f64.npz["volume_sss"] under
+   volume_sss's gate;
+21. full width: 256x256, 32 spp, chunk 16 (example:volume_sss:dense);
+   mean within 1% of JAX_MEAN_VOL_256, K1's closest mode and dual form
+   launched; third calls copied;
+22. main-path shapes: at 65,536 lanes the closest mode, the dual form and
+   the Moeller-Trumbore mode on the copied inputs, held and timed;
+
+big_instanced with pallas_onehot2 (K6 for every closest hit and shadow
+test):
+
+23. K6 vs its plain version as K5 in 11;
+24. full width: 256x256, 16 spp, chunk 8 (example:big_instanced:onehot2);
+   mean within 0.5% of JAX_MEAN_BIG_256, K6 launched; third call copied;
+25. main-path shapes: at 65,536 lanes K6 on the copied closest-hit input
+   and on sun shadow rays, held and timed, and K5 timed on the same copied
+   input beside it.
+
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. Each
 kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published peaks). The script takes about 3 minutes, the
+H100 SXM's published peaks). The script takes about 6 minutes, the
 kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
@@ -122,13 +166,30 @@ JAX_MEAN_VOL_256 = 0.2115986647204958
 # python -m tests.test_torch_instanced_render mean 256 16 8)
 JAX_MEAN_BIG_256 = 0.21052450607052078
 TWIN_BIG = "raytracingproject_tpu_torch/data/twin_big_instanced.npz"
+# cornell_diffuse 512x512x64, chunks of 32, default clamp (the JAX
+# package's render_samples_regen on the CPU through its dense sweep;
+# python -m tests.test_torch_dense_render mean 512 64 32)
+JAX_MEAN_CORNELL_512 = 0.16585140399495943
 # the wrappers: kernel name -> (module under ops/, function)
 WRAPPERS = {
     "cluster_walk": ("cluster_walk", "intersect_clusters_walk"),
     "occlusion_walk": ("occlusion_walk", "occlusion_clusters_walk"),
     "tile_walk": ("tile_walk", "intersect_clusters_tile"),
     "cluster2_walk": ("cluster2_walk", "intersect_clusters2_walk"),
+    "onehot2_walk": ("onehot2_walk", "intersect_clusters2_onehot"),
+    "dense_closest": ("dense_sweep", "intersect_brute_sweep"),
+    "dense_any": ("dense_sweep", "shadow_blocked_sweep"),
+    "dense_dual": ("dense_sweep", "occlusion_sweep"),
+    "dense_mt": ("dense_sweep", "intersect_mt_sweep"),
 }
+# K1's wrappers count launches per mode, in one dict
+DENSE_MODE = {"dense_closest": "closest", "dense_any": "any",
+              "dense_dual": "dual", "dense_mt": "mt"}
+# the plain version of each of them, in ops/intersect.py
+DENSE_PLAIN = {"dense_closest": "intersect_brute",
+               "dense_any": "shadow_blocked_brute",
+               "dense_dual": "intersect_brute_occlusion",
+               "dense_mt": "intersect_brute_mt"}
 # operation counts of the walks' two tests (float32 arithmetic and
 # comparisons, counted from csrc/watertight.cuh) and the card's peaks
 SLAB_OPS = 27      # slab_entry: one ray against one cluster box
@@ -137,6 +198,9 @@ TRI_OPS = 110      # wt_tri_v: one ray against one triangle
 # direction (33, csrc/cluster2_walk.cu) and a new shear basis (68,
 # wt_setup in csrc/watertight.cuh)
 XFORM_OPS = 33 + 68
+# one ray against one triangle in Moeller-Trumbore arithmetic (counted from
+# csrc/dense_sweep.cu dense_mt_kernel)
+MT_OPS = 56
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -164,6 +228,20 @@ def module(name):
 
 def wrapper(name):
     return getattr(module(name), WRAPPERS[name][1])
+
+
+def launches_of(name):
+    count = module(name).launches
+    return count[DENSE_MODE[name]] if name in DENSE_MODE else count
+
+
+def reset_launches():
+    for name in WRAPPERS:
+        mod = module(name)
+        if name in DENSE_MODE:
+            mod.launches[DENSE_MODE[name]] = 0
+        else:
+            mod.launches = 0
 
 
 def median_ms(fn, reps):
@@ -634,17 +712,16 @@ def full_width(card, spec, width, spp, ref_mean, mean_gate, path_kernels,
          str(width), "--chunk", str(chunk), "--lanes-per-pixel", "1",
          "--device", device])
     with record_calls(path_kernels, RECORD_CALL) as rec:
-        for name in WRAPPERS:
-            module(name).launches = 0
+        reset_launches()
         img, st = cli.run(args)
-        launches = {name: module(name).launches for name in WRAPPERS}
+        launches = {name: launches_of(name) for name in WRAPPERS}
     mean = float(img.astype(np.float64).mean())
     mean_rel = abs(mean / ref_mean - 1.0)
     log(f"[render] {spec} {width}x{width}x{spp} chunk {chunk}: "
         f"{st['render_s']:.3f} s, {st['msamples_per_s']:.4f} Msamples/s on "
         f"{card}; host compile {st['compile_s']:.3f} s; mean {mean:.8f} "
         f"(JAX package {ref_mean:.8f}, rel {mean_rel:.2e}); launches "
-        f"{launches}")
+        f"{ {k: v for k, v in launches.items() if v} }")
     assert img.shape == (width, width, 3) and np.isfinite(img).all()
     assert mean_rel <= mean_gate, f"{spec}: full-width mean off the JAX " \
         "package's"
@@ -660,13 +737,14 @@ def scene_box(kg):
     return cb[:, :3].min(0), cb[:, 3:].max(0)
 
 
-def k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel=True):
-    """K5 (or, kernel=False, its plain version) on the scene's tables."""
+def k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel="cluster2_walk"):
+    """K5, K6 (kernel="onehot2_walk") or, kernel=None, their plain version
+    on the scene's tables."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     ds = kg["dscene"]
     tabs = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]))
     if kernel:
-        return wrapper("cluster2_walk")(
+        return wrapper(kernel)(
             ds["sc_bounds"], *tabs, int(kg["sc_gmax"]), o, d, tmin, tmax,
             vis, shadow_any_hit=any_hit, has_instances=True)
     return ci.intersect_clusters(*tabs, o, d, tmin, tmax, vis,
@@ -674,7 +752,8 @@ def k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel=True):
 
 
 def cluster2_bound(kg, args, any_hit, out):
-    """(bound ms, bound_by) of one K5 call. Bytes: tables, rays and
+    """(bound ms, bound_by) of one K5 or K6 call (the work a lane must do
+    is the same in both). Bytes: tables, rays and
     results once. Operations: every lane tests every supercluster box; a
     closest-hit lane tests the cluster boxes of each group it enters
     before its final t, and in each cluster it enters before its final t
@@ -706,10 +785,10 @@ def cluster2_bound(kg, args, any_hit, out):
     return _bound(_nbytes(scb, cb, ctab, *args, *out.values()), ops)
 
 
-def check_cluster2(kg, n_check, rng):
-    """K5 against its plain version, closest and any hit, on random rays
-    from inside the scene's bounds and on camera rays: hit masks equal,
-    max |dt| 0 off exact ties. Returns max |t| error."""
+def check_cluster2(kg, n_check, rng, kernel="cluster2_walk"):
+    """K5 (or K6) against its plain version, closest and any hit, on
+    random rays from inside the scene's bounds and on camera rays: hit
+    masks equal, max |dt| 0 off exact ties. Returns max |t| error."""
     dev = kg["dscene"]["cluster_table"].device
     side = int(round(n_check ** 0.5))
     lo, hi = scene_box(kg)
@@ -722,15 +801,14 @@ def check_cluster2(kg, n_check, rng):
         tmax = torch.full((n,), 1e30, device=dev)
         vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
         for any_hit in (False, True):
-            ref = k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel=False)
-            got = k5_call(kg, o, d, tmin, tmax, vis, any_hit)
+            ref = k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel=None)
+            got = k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel)
             sync()
             mode = "any-hit" if any_hit else "closest"
-            e = compare_walk(f"cluster2_walk {mode} {label}", ref, got,
-                             any_hit)
-            assert e == 0.0, f"K5 {mode} {label}: |dt| {e} off the ties"
+            e = compare_walk(f"{kernel} {mode} {label}", ref, got, any_hit)
+            assert e == 0.0, f"{kernel} {mode} {label}: |dt| {e} off the ties"
             err = max(err, e)
-    return {"cluster2_walk": err}
+    return {kernel: err}
 
 
 def sun_shadow_rays(kg, o, d, rng):
@@ -742,7 +820,7 @@ def sun_shadow_rays(kg, o, d, rng):
     n = o.shape[0]
     vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
     hit = k5_call(kg, o, d, torch.zeros(n, device=dev),
-                  torch.full((n,), 1e30, device=dev), vis, False)
+                  torch.full((n,), 1e30, device=dev), vis, False, None)
     P = o + hit["t"][:, None] * d
     u = [torch.tensor(rng.uniform(size=n).astype(np.float32), device=dev)
          for _ in range(3)]
@@ -755,38 +833,210 @@ def sun_shadow_rays(kg, o, d, rng):
     return so, sd, stmin, stmax
 
 
-def big_main_path_checks(kg, side, rng, card, rec):
-    """At side x side lanes (the render's own width): K5 closest on the
-    render's recorded input, K5 any-hit on sun shadow rays."""
-    ra = inspect.signature(wrapper("cluster2_walk")).bind(
+def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk"):
+    """At side x side lanes (the render's own width): K5 (or K6) closest
+    on the render's recorded input and any-hit on sun shadow rays; with
+    K6, K5 is timed on the same recorded input beside it."""
+    tag = {"cluster2_walk": "K5", "onehot2_walk": "K6"}[kernel]
+    ra = inspect.signature(wrapper(kernel)).bind(
         *rec["args"], **rec["kw"])
     ra.apply_defaults()
     a = ra.arguments
     n = a["o"].shape[0]
     assert n == side * side, "recorded call is not full width"
-    assert not a["shadow_any_hit"], "the recorded K5 call is not a closest hit"
+    assert not a["shadow_any_hit"], "the recorded call is not a closest hit"
     rvis = a["visibility"]
     kinds = sorted(int(x) for x in torch.unique(rvis).cpu())
-    log(f"[main-path] recorded K5 input: visibility values {kinds}, lane "
+    log(f"[main-path] recorded {tag} input: visibility values {kinds}, lane "
         f"shares {[round(float((rvis == k).float().mean()), 4) for k in kinds]}")
-    assert len(kinds) > 1, "the recorded K5 call holds no bounce rays"
+    assert len(kinds) > 1, "the recorded call holds no bounce rays"
     rargs = (a["o"], a["d"], a["tmin"], a["tmax"], a["visibility"])
     o, d = camera_rays(kg, side, side, a["o"].device)
     so, sd, stmin, stmax = sun_shadow_rays(kg, o, d, rng)
     sargs = (so, sd, stmin, stmax,
              torch.full((n,), 128, dtype=torch.int32, device=o.device))
 
-    def case(args, any_hit, compare):
-        return (lambda: k5_call(kg, *args, any_hit),
-                lambda: k5_call(kg, *args, any_hit, kernel=False),
-                "cluster2_walk", compare,
+    def case(args, any_hit, compare, which=kernel):
+        return (lambda: k5_call(kg, *args, any_hit, which),
+                lambda: k5_call(kg, *args, any_hit, None),
+                which, compare,
                 lambda out: cluster2_bound(kg, args, any_hit, out))
 
-    cases = {"K5 closest render": case(rargs, False, compare_hits),
-             "K5 any-hit shadow": case(sargs, True, compare_any_hit)}
+    cases = {f"{tag} closest render": case(rargs, False, compare_hits),
+             f"{tag} any-hit shadow": case(sargs, True, compare_any_hit)}
+    if kernel == "onehot2_walk":
+        cases["K5 closest on K6's render input"] = case(
+            rargs, False, compare_hits, "cluster2_walk")
     log(f"[main-path] sun shadow rays: {float((stmax > 1e-5).float().mean()):.4f}"
         " of the lanes have a segment")
     return timed_cases(cases, n, card)
+
+
+def dense_plain(name):
+    from raytracingproject_tpu_torch.ops import intersect as isect
+    return getattr(isect, DENSE_PLAIN[name])
+
+
+def dense_tables(kg, rng):
+    """(tri_verts, prim_object, object_visibility, boundary mask) of a
+    use_brute scene; a scene without volume gets a seeded boundary mask
+    planted, so that both minima of the dual form are exercised."""
+    ds = kg["dscene"]
+    bnd = ds["prim_is_boundary"]
+    if not bool(bnd.any()):
+        bnd = torch.tensor(rng.uniform(size=bnd.shape[0]) < 0.3,
+                           device=bnd.device)
+    return (ds["tri_verts_world"], ds["prim_object_packed"],
+            ds["object_visibility"], bnd)
+
+
+def mt_packets(tri_verts, prim_object):
+    """The (nb, 8, 3) v0/e1/e2 packets of the Moeller-Trumbore mode."""
+    from raytracingproject_tpu_torch.ops import intersect as isect
+    _nb, v0, e1, e2, _po, _pv = isect.pack_tri_blocks(tri_verts, prim_object,
+                                                      None)
+    return tuple(x.contiguous() for x in (v0, e1, e2))
+
+
+def compare_equal(name, ref, got):
+    """K1 follows its plain version's winner rule literally: every output
+    equal to the bit. Returns the max |t| error (0)."""
+    for k in ref:
+        assert torch.equal(ref[k], got[k]), f"{name}: {k} differs"
+    log(f"[kernels] {name}: {ref['t'].shape[0]} lanes, hit "
+        f"{float((ref['prim'] >= 0).float().mean()):.4f}, prim, t, u, v "
+        "equal to the bit")
+    return 0.0
+
+
+def compare_blocked(name, ref, got):
+    assert torch.equal(ref, got), f"{name}: blocked masks differ"
+    log(f"[kernels] {name}: {ref.shape[0]} lanes, masks equal, blocked "
+        f"{float(ref.float().mean()):.4f}")
+    return 0.0
+
+
+def compare_dual(name, ref, got):
+    e = compare_occlusion(name, ref, got, need_boundary=True)
+    assert e == 0.0, f"{name}: |dt| {e}"
+    return e
+
+
+DENSE_COMPARE = {"dense_closest": compare_equal, "dense_any": compare_blocked,
+                 "dense_dual": compare_dual, "dense_mt": compare_equal}
+
+
+def dense_bound(name, args, kw, out):
+    """(bound ms, bound_by) of one K1 call. Bytes: triangles, rays and
+    results once. Operations: a closest-hit, dual or Moeller-Trumbore lane
+    with a non-empty window tests every triangle; an any-hit lane that is
+    blocked needs one test, an unblocked one with a window every
+    triangle."""
+    sig = inspect.signature(dense_plain(name)).bind(*args, **kw)
+    a = sig.arguments
+    if name == "dense_mt":
+        p = a["tri_v0"].shape[0] * a["tri_v0"].shape[1]
+        tests = float((a["tmax"] > a["tmin"]).sum()) * p
+        per_test = MT_OPS
+    else:
+        p = a["tri_verts"].shape[0]
+        per_test = TRI_OPS
+        if name == "dense_dual":
+            window = torch.maximum(a["tmax_closest"], a["tmax_any"]) \
+                > a["tmin"]
+            tests = float(window.sum()) * p
+        else:
+            window = a["tmax"] > a["tmin"]
+            per_lane = torch.where(window, float(p), 0.0)
+            if name == "dense_any":
+                per_lane = torch.where(out, 1.0, per_lane)
+            tests = float(per_lane.sum())
+    outs = out.values() if isinstance(out, dict) else (
+        out if isinstance(out, tuple) else (out,))
+    return _bound(_nbytes(*a.values(), *outs), tests * per_test)
+
+
+def check_dense(kg, n_check, rng, label):
+    """K1's four modes against their plain versions on the scene's dense
+    arrays: random rays with mixed per-lane visibility and a tenth of the
+    windows empty, and camera rays. Returns max |t| error per mode."""
+    tv, po, ov, bnd = dense_tables(kg, rng)
+    dev = tv.device
+    side = int(round(n_check ** 0.5))
+    packets = mt_packets(tv, po)
+    errs = {k: 0.0 for k in DENSE_MODE}
+    kinds = np.array([1, 8, 16, 4, 128], np.int32)
+    for rays, (o, d), tmin0 in (
+            ("random", random_rays(n_check, rng, dev), 1e-4),
+            ("camera", camera_rays(kg, side, side, dev), 0.0)):
+        n = o.shape[0]
+        tmin = torch.full((n,), tmin0, device=dev)
+        empty = rng.uniform(size=n) < (0.1 if rays == "random" else 0.0)
+        tmax = torch.tensor(np.where(empty, tmin0, 1e30).astype(np.float32),
+                            device=dev)
+        tmax_any = torch.tensor(
+            np.where(rng.uniform(size=n) < 0.5, rng.uniform(10, 800, n),
+                     1e30).astype(np.float32), device=dev)
+        tmax_c = torch.tensor(rng.uniform(10, 1000, n).astype(np.float32),
+                              device=dev)
+        vis = torch.tensor(kinds[rng.integers(0, 5, n)] if rays == "random"
+                           else np.ones(n, np.int32), device=dev)
+        svis = torch.full((n,), 128, dtype=torch.int32, device=dev)
+        calls = {
+            "dense_closest": (tv, po, o, d, tmin, tmax, vis, ov),
+            "dense_any": (tv, po, o, d, tmin, tmax_any, svis, ov),
+            "dense_dual": (tv, po, bnd, o, d, tmin, tmax_c, tmax_any, vis,
+                           svis, ov),
+            "dense_mt": (*packets, o, d, tmin, tmax),
+        }
+        for name, args in calls.items():
+            ref, got = dense_plain(name)(*args), wrapper(name)(*args)
+            sync()
+            errs[name] = max(errs[name], DENSE_COMPARE[name](
+                f"{name} {label} {rays}", ref, got))
+    return errs
+
+
+def dense_main_path_checks(kg, label, n, card, rec):
+    """At the render's own width: each recorded K1 call (the third of its
+    mode in the full-width render) held against its plain version and
+    timed, and the Moeller-Trumbore mode on the recorded closest-hit
+    rays."""
+    cases = {}
+    for name, r in rec.items():
+        args, kw = r["args"], r["kw"]
+        lanes = inspect.signature(dense_plain(name)).bind(
+            *args, **kw).arguments["o"].shape[0]
+        assert lanes == n, "recorded call is not full width"
+        cases[f"K1 {DENSE_MODE[name]} render ({label})"] = (
+            lambda name=name, args=args, kw=kw: wrapper(name)(*args, **kw),
+            lambda name=name, args=args, kw=kw: dense_plain(name)(*args,
+                                                                  **kw),
+            name, DENSE_COMPARE[name],
+            lambda out, name=name, args=args, kw=kw: dense_bound(
+                name, args, kw, out))
+    a = inspect.signature(dense_plain("dense_closest")).bind(
+        *rec["dense_closest"]["args"],
+        **rec["dense_closest"]["kw"]).arguments
+    rvis = a["visibility"]
+    kinds = sorted(int(x) for x in torch.unique(rvis).cpu())
+    log(f"[main-path] recorded K1 closest input ({label}): visibility values "
+        f"{kinds}, lane shares "
+        f"{[round(float((rvis == k).float().mean()), 4) for k in kinds]}")
+    assert len(kinds) > 1, "the recorded K1 call holds no bounce rays"
+    mt = (*mt_packets(a["tri_verts"], a["prim_object"]), a["o"], a["d"],
+          a["tmin"], a["tmax"])
+    cases[f"K1 mt render rays ({label})"] = (
+        lambda: wrapper("dense_mt")(*mt), lambda: dense_plain("dense_mt")(*mt),
+        "dense_mt", compare_equal,
+        lambda out: dense_bound("dense_mt", mt, {}, out))
+    return timed_cases(cases, n, card)
+
+
+def merge(errs, new):
+    """Keep the largest error per kernel."""
+    for k, v in new.items():
+        errs[k] = max(errs.get(k, 0.0), v)
 
 
 def main():
@@ -834,7 +1084,7 @@ def main():
         card, "example:cornell:glossy", 512, 64, JAX_MEAN_512, 0.005,
         ("cluster_walk", "occlusion_walk"))
     g_times, e = glossy_main_path_checks(kg, 512, rng, card, g_rec)
-    errs.update({k: max(errs.get(k, 0.0), v) for k, v in e.items()})
+    merge(errs, e)
 
     # ---- volume_sss: 7. kernel checks; 8. accuracy; 9. full width;
     # 10. main-path shapes ----
@@ -844,14 +1094,14 @@ def main():
     vkg.update(examples.VOLUME_SSS_DISPATCH)
     e = check_walks(vkg, N_CHECK, rng, ("tile_walk",), ("dual",),
                     random_tie_frac=TIE_FRAC_COPLANAR)
-    errs.update({k: max(errs.get(k, 0.0), v) for k, v in e.items()})
+    merge(errs, e)
     accuracy(dev, "volume_sss", examples.volume_sss_scene(64, 64, spp=128),
              examples.VOLUME_SSS_DISPATCH, 1.15e-4, 0.0015)
     v_launch, v_rec, v_st = full_width(
         card, "example:volume_sss", 256, 32, JAX_MEAN_VOL_256, 0.01,
         ("tile_walk", "occlusion_walk"))
     v_times, e = volume_main_path_checks(vkg, 256, card, v_rec)
-    errs.update({k: max(errs.get(k, 0.0), v) for k, v in e.items()})
+    merge(errs, e)
 
     # ---- big_instanced: 11. kernel checks; 12. accuracy; 13. full width;
     # 14. main-path shapes ----
@@ -859,7 +1109,7 @@ def main():
     bscene.device_update()
     bkg = bscene.make_kernel_globals(dev)
     assert "sc_bounds" in bkg["dscene"] and bkg["has_instances"]
-    errs.update(check_cluster2(bkg, N_CHECK, rng))
+    merge(errs, check_cluster2(bkg, N_CHECK, rng))
     pair = np.load(TWIN_BIG)
     d32 = pair["f32_jax"] - pair["f64"]
     jax_rmse = float(np.sqrt(np.mean(d32 * d32)))
@@ -875,25 +1125,85 @@ def main():
         ("cluster2_walk",), chunk=8)
     b_times, e = big_main_path_checks(bkg, 256, rng, card,
                                       b_rec["cluster2_walk"])
-    errs.update({k: max(errs.get(k, 0.0), v) for k, v in e.items()})
+    merge(errs, e)
 
-    by_path = {name: {"glossy_nee_mis": g_launch[name],
-                      "volume_sss": v_launch[name],
-                      "big_instanced": b_launch[name]} for name in WRAPPERS}
-    log(f"[render] Msamples/s: glossy_nee_mis {g_st['msamples_per_s']:.4f}, "
-        f"volume_sss {v_st['msamples_per_s']:.4f}, big_instanced "
-        f"{b_st['msamples_per_s']:.4f} ({card})")
-    times = {**g_times, **v_times, **b_times}
-    rows = (("cluster_walk", "pallas_onehot.py:1008", "K2 closest render"),
-            ("occlusion_walk", "pallas_cluster.py:811", "K3 dual render"),
-            ("tile_walk", "pallas_cluster.py:253", "K4 closest render"),
-            ("cluster2_walk", "pallas_cluster.py:565", "K5 closest render"))
+    # ---- cornell_diffuse: 15. kernel checks; 16. accuracy; 17. full
+    # width; 18. main-path shapes ----
+    cscene = examples.cornell_box(512, 512, spp=64)
+    cscene.device_update()
+    ckg = cscene.make_kernel_globals(dev)
+    assert ckg["use_brute"] and "cluster_table" not in ckg["dscene"]
+    merge(errs, check_dense(ckg, N_CHECK, rng, "cornell"))
+    accuracy(dev, "cornell_diffuse", examples.cornell_box(64, 64, spp=128),
+             {}, 5.7e-5, 0.0007)
+    c_launch, c_rec, c_st = full_width(
+        card, "example:cornell", 512, 64, JAX_MEAN_CORNELL_512, 0.005,
+        ("dense_closest", "dense_any"), chunk=32)
+    c_times, e = dense_main_path_checks(ckg, "cornell", 512 * 512, card, c_rec)
+    merge(errs, e)
+
+    # ---- volume_sss, dense dispatch: 19. kernel checks; 20. accuracy; 21.
+    # full width; 22. main-path shapes ----
+    dkg = vscene.make_kernel_globals(dev)
+    assert dkg["use_brute"]
+    merge(errs, check_dense(dkg, N_CHECK, rng, "volume_sss"))
+    accuracy(dev, "volume_sss", examples.volume_sss_scene(64, 64, spp=128),
+             {}, 1.15e-4, 0.0015)
+    d_launch, d_rec, d_st = full_width(
+        card, "example:volume_sss:dense", 256, 32, JAX_MEAN_VOL_256, 0.01,
+        ("dense_closest", "dense_dual"))
+    d_times, e = dense_main_path_checks(dkg, "volume_sss", 256 * 256, card,
+                                        d_rec)
+    merge(errs, e)
+
+    # ---- big_instanced with pallas_onehot2: 23. kernel checks; 24. full
+    # width; 25. main-path shapes ----
+    merge(errs, check_cluster2(bkg, N_CHECK, rng, "onehot2_walk"))
+    o_launch, o_rec, o_st = full_width(
+        card, "example:big_instanced:onehot2", 256, 16, JAX_MEAN_BIG_256,
+        0.005, ("onehot2_walk",), chunk=8)
+    assert o_launch["cluster2_walk"] == 0
+    o_times, e = big_main_path_checks(bkg, 256, rng, card,
+                                      o_rec["onehot2_walk"], "onehot2_walk")
+    merge(errs, e)
+
+    paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
+             "big_instanced": (b_launch, b_st),
+             "cornell_diffuse": (c_launch, c_st),
+             "volume_sss_dense": (d_launch, d_st),
+             "big_instanced_onehot2": (o_launch, o_st)}
+    by_path = {name: {path: launch[name]
+                      for path, (launch, _st) in paths.items()}
+               for name in WRAPPERS}
+    log("[render] Msamples/s: " + ", ".join(
+        f"{path} {st['msamples_per_s']:.4f}"
+        for path, (_l, st) in paths.items()) + f" ({card})")
+    times = {**g_times, **v_times, **b_times, **c_times, **d_times,
+             **o_times}
+    # kernel, source, the TPU kernel's pallas_call, its timed case, the
+    # prefix of its other cases
+    k1 = ("dense_sweep", "pallas_intersect.py:156")
+    rows = (("dense_closest", *k1, "K1 closest render (volume_sss)",
+             "K1 closest"),
+            ("dense_any", *k1, "K1 any render (cornell)", "K1 any"),
+            ("dense_dual", *k1, "K1 dual render (volume_sss)", "K1 dual"),
+            ("cluster_walk", "cluster_walk", "pallas_onehot.py:1008",
+             "K2 closest render", "K2"),
+            ("occlusion_walk", "occlusion_walk", "pallas_cluster.py:811",
+             "K3 dual render", "K3"),
+            ("tile_walk", "tile_walk", "pallas_cluster.py:253",
+             "K4 closest render", "K4"),
+            ("cluster2_walk", "cluster2_walk", "pallas_cluster.py:565",
+             "K5 closest render", "K5"),
+            ("onehot2_walk", "onehot2_walk", "pallas_onehot.py:619",
+             "K6 closest render", "K6"))
     kern = []
-    for name, tpu, case in rows:
+    for name, source, tpu, case, prefix in rows:
         tm = times[case]
+        assert sum(by_path[name].values()) > 0, f"{name} never launched"
         kern.append({
             "name": name, "route": "cuda",
-            "source": f"raytracingproject_tpu_torch/csrc/{name}.cu",
+            "source": f"raytracingproject_tpu_torch/csrc/{source}.cu",
             "replaces": f"raytracingproject_tpu/ops/{tpu}",
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
@@ -902,7 +1212,14 @@ def main():
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None, "timed_case": case, "lanes": tm["lanes"],
             "cases": {c: t for c, t in times.items()
-                      if c.startswith(case[:2])}})
+                      if c.startswith(prefix)}})
+    # K1's fourth mode computes the TPU kernel's own Moeller-Trumbore
+    # contract, which no render of either package calls: its checks and
+    # times ride on the closest mode's entry
+    assert by_path["dense_mt"] == {path: 0 for path in paths}
+    kern[0]["mt_mode"] = {
+        "max_abs_err": errs["dense_mt"], "launches": 0,
+        "cases": {c: t for c, t in times.items() if c.startswith("K1 mt")}}
     print(card_line())
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
 """Command line (JAX counterpart: raytracingproject_tpu/app/cli.py).
 
+  python -m raytracingproject_tpu_torch example:cornell \\
+      --samples 64 --width 512 --height 512 --chunk 32 --device cuda
   python -m raytracingproject_tpu_torch example:cornell:glossy \\
       --samples 64 --width 512 --height 512 --device cuda --output out.png
-  python -m raytracingproject_tpu_torch example:volume_sss \\
+  python -m raytracingproject_tpu_torch example:volume_sss[:dense] \\
       --samples 32 --width 256 --height 256 --device cuda
-  python -m raytracingproject_tpu_torch example:big_instanced \\
+  python -m raytracingproject_tpu_torch example:big_instanced[:onehot2] \\
       --samples 16 --width 256 --height 256 --chunk 8 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
-example:volume_sss renders with its pinned dispatch
-(examples.VOLUME_SSS_DISPATCH: K4 walk, K3 occlusion); example:big_instanced
-is instanced_scene(grid=8), the two-level instanced scene (K5 for every
-closest hit and shadow test).
+example:cornell is the Cornell box with its two boxes (36 prims: the dense
+sweep K1 for every closest hit and shadow test). example:volume_sss
+renders with its pinned dispatch (examples.VOLUME_SSS_DISPATCH: K4 walk,
+K3 occlusion), example:volume_sss:dense with the host compile's own choice
+for its 1,008 prims (K1 in its closest and dual forms).
+example:big_instanced is instanced_scene(grid=8), the two-level instanced
+scene (K5 for every closest hit and shadow test); example:big_instanced:
+onehot2 opts into K6 for both (examples.BIG_INSTANCED_ONEHOT2).
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ def build_parser():
         prog="raytracingproject_tpu_torch",
         description="PyTorch/CUDA port of the path tracer")
     p.add_argument("scene",
-                   help="'example:cornell[:variant]' | 'example:volume_sss' "
-                   "| 'example:big_instanced'")
+                   help="'example:cornell[:variant]' | "
+                   "'example:volume_sss[:dense]' | "
+                   "'example:big_instanced[:onehot2]'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -49,8 +56,12 @@ def load_scene(spec):
     parts = spec.split(":")
     if parts == ["example", "volume_sss"]:
         return examples.volume_sss_scene(), examples.VOLUME_SSS_DISPATCH
-    if parts == ["example", "big_instanced"]:
-        return examples.instanced_scene(256, 256, spp=16, grid=8), {}
+    if parts == ["example", "volume_sss", "dense"]:
+        return examples.volume_sss_scene(), {}
+    if parts[:2] == ["example", "big_instanced"] \
+            and parts[2:] in ([], ["onehot2"]):
+        return (examples.instanced_scene(256, 256, spp=16, grid=8),
+                examples.BIG_INSTANCED_ONEHOT2 if parts[2:] else {})
     if len(parts) < 2 or parts[0] != "example" or parts[1] != "cornell":
         raise SystemExit(f"unknown scene '{spec}' (try example:cornell, "
                          "example:volume_sss or example:big_instanced)")

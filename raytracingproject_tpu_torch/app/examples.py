@@ -2,7 +2,8 @@
 
 Each scene is built as the JAX package builds it, object for object and
 shader for shader, so both host compiles produce the same tables:
-`cornell_box` (the glossy_nee_mis configuration with spheres="glossy"),
+`cornell_box` (with the two boxes the cornell_diffuse configuration, 36
+prims; with spheres="glossy" the glossy_nee_mis configuration),
 `volume_sss_scene` (the volume_sss configuration: a homogeneous smoke box
 and a random-walk SSS sphere in the Cornell box) and `instanced_scene`
 (with grid=8 the big_instanced configuration: 64 instances of one
@@ -10,11 +11,12 @@ image-textured sphere on a checkered ground plane under a distant sun and
 a constant sky). Variants that need unported features (glass spheres, an
 area lamp) raise NotImplementedError.
 
-VOLUME_SSS_DISPATCH holds the intersection flags the volume_sss
-configuration renders with (kg.update(VOLUME_SSS_DISPATCH) after
-make_kernel_globals): its 1,008 prims would select the dense sweep, and
-the JAX package's benchmark pins the tile-shared cluster walk (K4) and
-the occlusion walk (K3) for it instead.
+Dispatch flags (kg.update(...) after make_kernel_globals):
+VOLUME_SSS_DISPATCH holds the intersection flags the JAX package's
+benchmark pins for volume_sss, the tile-shared cluster walk (K4) and the
+occlusion walk (K3); without them its 1,008 prims select the dense sweep
+(K1), the host compile's own choice. BIG_INSTANCED_ONEHOT2 opts the
+two-level scene into the per-lane inner walk (K6) in place of K5.
 """
 
 from __future__ import annotations
@@ -154,6 +156,7 @@ def sss_shader(name, color=(0.9, 0.3, 0.2), radius=(10.0, 5.0, 3.0),
 
 VOLUME_SSS_DISPATCH = {"use_brute": False, "pallas_clusters": True,
                        "pallas_onehot": False, "pallas_occlusion": True}
+BIG_INSTANCED_ONEHOT2 = {"pallas_onehot2": True}
 
 
 def volume_sss_scene(width=256, height=256, spp=32, density=0.004):
@@ -205,7 +208,7 @@ def instanced_scene(width=256, height=256, spp=32, grid=4, nlat=12,
     ground plane, a UV image texture on the spheres, a distant sun and a
     constant sky. grid=8 (64 x 528 + 2 flat prims, over the flatten
     limit) keeps the sphere instanced: the big_instanced configuration,
-    two-level cluster tables, K5. grid=4 compiles flattened (8,450 static
+    two-level cluster tables, K5 (or K6). grid=4 compiles flattened (8,450 static
     prims), which needs the JAX package's C++ BVH builder: not ported."""
     scene = Scene()
     scene.camera.set("matrix", tfm.look_at((14, -18, 10), (0, 0, 1),

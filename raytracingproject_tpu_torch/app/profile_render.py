@@ -1,8 +1,8 @@
 """Where the render's time goes on the card.
 
     python -m raytracingproject_tpu_torch.app.profile_render \\
-        [--scene glossy|volume_sss|big_instanced] [--device cuda] \\
-        [--out profile.json]
+        [--scene glossy|volume_sss|big_instanced|cornell|volume_sss_dense|
+                 big_instanced_onehot2] [--device cuda] [--out profile.json]
 
 Renders one configuration of chip_smoke.py at its full width, one lane
 per pixel, chunk by chunk through ops/integrator.py
@@ -12,7 +12,11 @@ example:volume_sss at 256x256 with its pinned dispatch
 (examples.VOLUME_SSS_DISPATCH) through K4 and K3's dual form;
 `big_instanced` is example:big_instanced at 256x256 through K5, which
 answers both the closest hit and the NEE shadow test (two calls per
-iteration).
+iteration), `big_instanced_onehot2` the same through K6; `cornell` is
+example:cornell (36 prims) at 512x512 through the dense sweep K1, closest
+mode and, for the shadow test, any-hit mode; `volume_sss_dense` is
+example:volume_sss:dense at 256x256 through K1's closest mode and its dual
+form.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
@@ -22,8 +26,8 @@ iteration).
    activities). From the device events of key_averages(): device kernels
    per iteration, device busy time, the device idle share (1 - busy / wall
    time of the profiled chunk), the per-call device time of the walk and
-   of K3 in the render, the walk's share of an iteration, and the device
-   kernels that take the most time.
+   of the shadow-test kernel in the render, the walk's share of an
+   iteration, and the device kernels that take the most time.
 
 Prints one JSON object as its last line, and writes it to --out if given.
 On a CPU device the walks take their plain versions and launch no kernel,
@@ -43,16 +47,30 @@ import torch
 K3_KERNEL = "occlusion_walk_kernel"
 TOP = 12   # device kernels listed, by total time
 # scene -> (example spec, width, closest-hit walk module, its kernel name,
-# the walk's calls per wavefront iteration)
+# the walk's calls per wavefront iteration, the shadow-test kernel where
+# it is another one)
 SCENES = {
     "glossy": ("example:cornell:glossy", 512, "cluster_walk",
-               "cluster_walk_kernel", 1),
+               "cluster_walk_kernel", 1, K3_KERNEL),
     "volume_sss": ("example:volume_sss", 256, "tile_walk",
-                   "tile_walk_kernel", 1),
-    # K5 answers the closest hit and the shadow test of every iteration
+                   "tile_walk_kernel", 1, K3_KERNEL),
+    # K5 (or K6) answers the closest hit and the shadow test of every
+    # iteration
     "big_instanced": ("example:big_instanced", 256, "cluster2_walk",
-                      "cluster2_walk_kernel", 2),
+                      "cluster2_walk_kernel", 2, None),
+    "big_instanced_onehot2": ("example:big_instanced:onehot2", 256,
+                              "onehot2_walk", "onehot2_walk_kernel", 2, None),
+    "cornell": ("example:cornell", 512, "dense_sweep",
+                "dense_closest_kernel", 1, "dense_any_kernel"),
+    "volume_sss_dense": ("example:volume_sss:dense", 256, "dense_sweep",
+                         "dense_closest_kernel", 1, "dense_dual_kernel"),
 }
+
+
+def _launches(walk):
+    """The closest-hit launches of a walk module (K1 counts per mode)."""
+    n = walk.launches
+    return n["closest"] if isinstance(n, dict) else n
 
 
 def build_parser():
@@ -87,7 +105,8 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
     from raytracingproject_tpu_torch.device import get_device
     from raytracingproject_tpu_torch.ops import integrator as integ
     from raytracingproject_tpu_torch.session.session import pixel_wavefront
-    spec, full_width, walk_name, walk_kernel, per_iter = SCENES[scene]
+    spec, full_width, walk_name, walk_kernel, per_iter, shadow_kernel = \
+        SCENES[scene]
     walk = importlib.import_module(
         f"raytracingproject_tpu_torch.ops.{walk_name}")
     width = width or full_width
@@ -101,10 +120,10 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
     px, py, pidx = pixel_wavefront(width, width, 1, dev)
 
     def chunk(start, n):
-        before = walk.launches
+        before = _launches(walk)
         integ.render_samples_regen(kg, px, py, pidx, start, n)
         _sync(dev)
-        return (walk.launches - before) // per_iter
+        return (_launches(walk) - before) // per_iter
 
     # ---- 1. warm-up ----
     chunk(0, profile_spp)
@@ -134,8 +153,8 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
     if not events:
         out.update({"device_busy_s": None, "device_idle_share": None,
                     "device_kernels_per_iteration": None,
-                    "walk_ms_per_call": None, "k3_ms_per_call": None,
-                    "k3_calls_per_iteration": None,
+                    "walk_ms_per_call": None, "shadow_ms_per_call": None,
+                    "shadow_calls_per_iteration": None,
                     "top_kernels": []})
         return out
     busy_us = sum(t for _n, _c, t in events)
@@ -143,7 +162,7 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
 
     def per_call(name):
         """(calls, device ms per call) of the kernels named `name`."""
-        hit = [(c, t) for n, c, t in events if name in n]
+        hit = [(c, t) for n, c, t in events if name and name in n]
         c = sum(c for c, _t in hit)
         return c, ((sum(t for _c, t in hit) / c / 1e3) if c else None)
 
@@ -154,22 +173,23 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
         "device_kernels_per_iteration": (calls / p_iters) if p_iters else None,
         "walk_kernel": walk_kernel,
         "walk_ms_per_call": per_call(walk_kernel)[1],
-        "k3_ms_per_call": per_call(K3_KERNEL)[1],
-        "k3_calls_per_iteration": (per_call(K3_KERNEL)[0] / p_iters
-                                   if p_iters else None),
+        "shadow_kernel": shadow_kernel,
+        "shadow_ms_per_call": per_call(shadow_kernel)[1],
+        "shadow_calls_per_iteration": (per_call(shadow_kernel)[0] / p_iters
+                                       if p_iters else None),
         "walk_calls_per_iteration": per_iter,
         "walk_share_of_iteration": None,
-        "walk_k3_share_of_iteration": None,
+        "walk_shadow_share_of_iteration": None,
         "top_kernels": [{"name": n[:120], "calls": c, "ms": t / 1e3}
                         for n, c, t in events[:TOP]]})
     if out["ms_per_iteration"] and out["walk_ms_per_call"]:
         out["walk_share_of_iteration"] = (
             out["walk_ms_per_call"] * per_iter / out["ms_per_iteration"])
     if out["ms_per_iteration"] and out["walk_ms_per_call"] \
-            and out["k3_ms_per_call"]:
-        out["walk_k3_share_of_iteration"] = (
-            (out["walk_ms_per_call"] + out["k3_ms_per_call"]
-             * out["k3_calls_per_iteration"]) / out["ms_per_iteration"])
+            and out["shadow_ms_per_call"]:
+        out["walk_shadow_share_of_iteration"] = (
+            (out["walk_ms_per_call"] * per_iter + out["shadow_ms_per_call"]
+             * out["shadow_calls_per_iteration"]) / out["ms_per_iteration"])
     return out
 
 

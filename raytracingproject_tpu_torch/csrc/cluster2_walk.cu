@@ -53,34 +53,7 @@
 // the lane's).
 #include "watertight.cuh"
 
-#define TILE 32
-
-// The warp's pick over an entry table e[count][TILE]: the lexicographic
-// minimum (entry, index) over lanes of each lane's first smallest entry
-// below its gate. Returns the entry (RT_INF when none) and sets *idx.
-static __device__ __forceinline__ float warp_pick(const float* e, int count,
-                                                  int lane, float gate,
-                                                  int* idx) {
-    float m = RT_INF;
-    int mc = count;
-    for (int c = 0; c < count; ++c) {
-        const float x = e[c * TILE + lane];
-        if (x < gate && x < m) {
-            m = x;
-            mc = c;
-        }
-    }
-    for (int off = TILE / 2; off > 0; off >>= 1) {
-        const float om = __shfl_xor_sync(0xFFFFFFFFu, m, off);
-        const int oc = __shfl_xor_sync(0xFFFFFFFFu, mc, off);
-        if (om < m || (om == m && oc < mc)) {
-            m = om;
-            mc = oc;
-        }
-    }
-    *idx = mc;
-    return m;
-}
+#define TILE RT_TILE
 
 __global__ void cluster2_walk_kernel(
     const float* __restrict__ scb, const float* __restrict__ cbounds,

@@ -128,3 +128,33 @@ static __device__ __forceinline__ float slab_entry(const float* b, float ox,
     const bool ok = (tn <= tf) && (tf >= tmin) && (tn <= tmax);
     return ok ? fmaxf(tn, tmin) : RT_INF;
 }
+
+#define RT_TILE 32
+
+// A tile of rays is one warp. The warp's pick over an entry table in shared
+// memory, e[count][RT_TILE] (a lane reads its own column): the lexicographic
+// minimum (entry, index) over lanes of each lane's first smallest entry
+// below its gate. Returns the entry (RT_INF when none) and sets *idx.
+static __device__ __forceinline__ float warp_pick(const float* e, int count,
+                                                  int lane, float gate,
+                                                  int* idx) {
+    float m = RT_INF;
+    int mc = count;
+    for (int c = 0; c < count; ++c) {
+        const float x = e[c * RT_TILE + lane];
+        if (x < gate && x < m) {
+            m = x;
+            mc = c;
+        }
+    }
+    for (int off = RT_TILE / 2; off > 0; off >>= 1) {
+        const float om = __shfl_xor_sync(0xFFFFFFFFu, m, off);
+        const int oc = __shfl_xor_sync(0xFFFFFFFFu, mc, off);
+        if (om < m || (om == m && oc < mc)) {
+            m = om;
+            mc = oc;
+        }
+    }
+    *idx = mc;
+    return m;
+}

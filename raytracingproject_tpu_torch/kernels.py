@@ -52,6 +52,24 @@ SIGNATURES = {
     "cluster2_walk.cu": {"rt_cluster2_walk": [
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P]},
+    # K6 takes K5's arguments
+    "onehot2_walk.cu": {"rt_onehot2_walk": [
+        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P]},
+    "dense_sweep.cu": {
+        # tri_verts prim_object obj_vis P o d tmin tmax vis n t prim u v obj
+        # stream
+        "rt_dense_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                             _P, _P, _P, _P, _P, _P],
+        # ... n blocked stream
+        "rt_dense_any": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+        # tri_verts prim_object obj_vis boundary P o d tmin tmaxc tmaxa visc
+        # visa n tb to blocked stream
+        "rt_dense_dual": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _P, _P, _P, _P],
+        # v0 e1 e2 P o d tmin tmax n t prim u v stream
+        "rt_dense_mt": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _P]},
 }
 
 _lib = None

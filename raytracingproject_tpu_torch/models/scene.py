@@ -10,9 +10,15 @@ only and covers the port's scenes:
   AUTO_FLATTEN_MAX_PRIMS flat prims keeps one object-space BLAS, and each
   user becomes an instance row; the SAH build and cluster cut are the
   port's own bvh/build.py and bvh/clusters.py;
-- the cluster tables (instance clusters carry world bounds and their
+- the dense-path arrays of static scenes (tri_verts_world,
+  prim_object_packed, object_visibility, prim_is_boundary: what the dense
+  sweep K1 reads; a scene of at most BRUTE_VS_CLUSTER_PRIMS static prims
+  records use_brute, the JAX package's dense-sweep choice);
+- the cluster tables, from CLUSTER_MIN_PRIMS prims on and for every
+  instanced scene (instance clusters carry world bounds and their
   instance's w2o) and, past CLUSTER_MAX_SINGLE_LEVEL clusters, the
-  two-level supercluster table sc_bounds and sc_gmax (the K5 walk);
+  two-level supercluster table sc_bounds and sc_gmax (the K5 and K6
+  walks);
 - the wide prim/object tables, with object transforms for instanced
   objects;
 - the light distribution over emissive triangles and lamps, the lamp
@@ -23,15 +29,14 @@ only and covers the port's scenes:
 Every array is built with the same numpy operations in the same order as
 the JAX package, so the tables come out bit-identical
 (tests/test_torch_scene.py, tests/test_torch_volume_render.py,
-tests/test_torch_instanced.py). The TLAS and the packed-BVH traversal
-arrays are not built: no render path of the port reads them.
+tests/test_torch_instanced.py, tests/test_torch_dense.py). The TLAS and
+the packed-BVH traversal arrays are not built, nor the bf16x3 one-hot
+tables (oh_*, oh2_*): no render path of the port reads them.
 
 Raising NotImplementedError: motion, hair, subdivision, displacement,
 portals, background lamps (the importance map), IES profiles, the light
 tree, transparent film, image files, and static scenes of 2,048 prims or
-more (the JAX package's C++ BVH builder). A scene of at most 1,024 prims
-records use_brute (the JAX package's dense-sweep choice) but still packs
-its clusters; only the dense dispatch itself raises.
+more (the JAX package's native C++ BVH construction).
 
 `make_kernel_globals(device)` returns the `KernelGlobals` dict: arrays
 as torch tensors on `device` under "dscene", statics under the JAX key
@@ -74,6 +79,11 @@ KG_ARRAYS = ("prim_table", "object_table", "cluster_bounds",
              "light_dist_type", "light_dist_cdf", "light_entries",
              "le_prim_rows", "le_obj_rows", "le_lamp_rows", "lamp_table",
              "bg_pmf")
+# (the cluster tables among them exist from CLUSTER_MIN_PRIMS prims on and
+# in every instanced scene)
+# the dense sweep's arrays (with prim_is_boundary); object_visibility is
+# uint32 on the host and int32 on the device
+KG_DENSE = ("tri_verts_world", "prim_object_packed", "object_visibility")
 # ... and those only some scenes have (two-level cluster tables)
 KG_OPTIONAL = ("sc_bounds",)
 
@@ -151,14 +161,15 @@ class Scene:
         lightd = self._pack_lights(packed)
         arrays = dict(packed)
         arrays.update(lightd)
-        arrays["prim_is_boundary"], arrays["cluster_boundary"] = \
-            _boundary_tables(self.shaders, arrays["prim_table"],
-                             arrays["cluster_table"],
-                             packed["__cluster_tris__"])
+        arrays["prim_is_boundary"], cbnd = _boundary_tables(
+            self.shaders, arrays["prim_table"], arrays.get("cluster_table"),
+            packed["__cluster_tris__"])
+        if cbnd is not None:
+            arrays["cluster_boundary"] = cbnd
         tex_data, tex_sizes = self.image_manager.device_update()
         bg = self.background.shader
         self.dscene = {
-            "arrays": {k: arrays[k] for k in KG_ARRAYS + KG_OPTIONAL
+            "arrays": {k: arrays[k] for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL
                        if k in arrays},
             "cam": self.camera.update(),
             "kint": self.integrator.kernel_record(),
@@ -315,10 +326,49 @@ class Scene:
             obj_flags[oi] = np.uint32(obj.flags())
             obj_blo[oi], obj_bhi[oi] = obj.geometry.compute_bounds()
 
-        # ---- cluster tables ----
-        if not has_instances and P < CLUSTER_MIN_PRIMS:
-            raise NotImplementedError(
-                f"{P} prims: the dense sweep (K1) path is not ported")
+        # ---- dense-path arrays (world-space triangles: static scenes) --
+        packed["tri_verts_world"] = packed["verts"]
+        packed["prim_object_packed"] = packed["object"]
+        packed["object_visibility"] = obj_visibility
+        packed["__has_instances__"] = has_instances
+        # instanced triangles exist only in object space: never dense
+        packed["__use_brute__"] = (not has_instances
+                                   and P <= BRUTE_VS_CLUSTER_PRIMS)
+        packed["__cluster_tris__"] = 0
+        packed["__sc_gmax__"] = 0
+        if has_instances or P >= CLUSTER_MIN_PRIMS:
+            self._pack_clusters(packed, blocks, instance_rows, prim_bases,
+                                obj_visibility)
+        # ---- wide lookup tables (ops/lookup.py layout) ----
+        pt = np.zeros((P, lk.PT_COLS), np.float32)
+        pt[:, lk.PT_V0:lk.PT_V0 + 9] = packed["verts"].reshape(P, 9)
+        pt[:, lk.PT_VN:lk.PT_VN + 9] = packed["vnormal"].reshape(P, 9)
+        pt[:, lk.PT_UV:lk.PT_UV + 6] = packed["uv"].reshape(P, 6)
+        pt[:, lk.PT_SHADER] = packed["shader"]
+        pt[:, lk.PT_SMOOTH] = packed["smooth"]
+        pt[:, lk.PT_OBJECT] = packed["object"]
+        packed["prim_table"] = pt
+
+        ot = np.zeros((nobj, lk.OT_COLS), np.float32)
+        ot[:, lk.OT_TFM:lk.OT_TFM + 12] = obj_tfm.reshape(nobj, 12)
+        ot[:, lk.OT_ITFM:lk.OT_ITFM + 12] = obj_itfm.reshape(nobj, 12)
+        ot[:, lk.OT_ITFM_GEN:lk.OT_ITFM_GEN + 12] = \
+            obj_itfm_gen.reshape(nobj, 12)
+        ot[:, lk.OT_COLOR:lk.OT_COLOR + 3] = obj_color
+        ot[:, lk.OT_RANDOM] = obj_random
+        ot[:, lk.OT_BOUNDS_LO:lk.OT_BOUNDS_LO + 3] = obj_blo
+        ot[:, lk.OT_BOUNDS_HI:lk.OT_BOUNDS_HI + 3] = obj_bhi
+        ot[:, lk.OT_VISIBILITY] = obj_visibility.astype(np.float32)
+        ot[:, lk.OT_FLAGS] = obj_flags.astype(np.float32)
+        packed["object_table"] = ot
+        return packed
+
+    def _pack_clusters(self, packed, blocks, instance_rows, prim_bases,
+                       obj_visibility):
+        """Cluster tables (and, past CLUSTER_MAX_SINGLE_LEVEL clusters,
+        the two-level supercluster table) into `packed`."""
+        objects = self.objects
+        has_instances = packed["__has_instances__"]
         two_level = False
         for ct_size in (16, 32, 64):
             block_cuts = [cl_mod.cut_clusters(blk["children"], ct_size)
@@ -370,7 +420,6 @@ class Scene:
         packed["cluster_bounds"] = cb
         packed["cluster_table"] = ctab
         packed["__cluster_tris__"] = ct_used
-        packed["__sc_gmax__"] = 0
         if two_level:
             gmax = max(CLUSTER2_GROUP_TARGET, -(-total_c // 512))
             gmax = -(-gmax // 8) * 8
@@ -394,34 +443,6 @@ class Scene:
                           for k in range(0, total_c, gmax)]
             packed["sc_bounds"] = cl_mod.supercluster_bounds(cb, groups)
             packed["__sc_gmax__"] = gmax
-        packed["__has_instances__"] = has_instances
-        # instanced triangles exist only in object space: never dense
-        packed["__use_brute__"] = (not has_instances
-                                   and P <= BRUTE_VS_CLUSTER_PRIMS)
-
-        # ---- wide lookup tables (ops/lookup.py layout) ----
-        pt = np.zeros((P, lk.PT_COLS), np.float32)
-        pt[:, lk.PT_V0:lk.PT_V0 + 9] = packed["verts"].reshape(P, 9)
-        pt[:, lk.PT_VN:lk.PT_VN + 9] = packed["vnormal"].reshape(P, 9)
-        pt[:, lk.PT_UV:lk.PT_UV + 6] = packed["uv"].reshape(P, 6)
-        pt[:, lk.PT_SHADER] = packed["shader"]
-        pt[:, lk.PT_SMOOTH] = packed["smooth"]
-        pt[:, lk.PT_OBJECT] = packed["object"]
-        packed["prim_table"] = pt
-
-        ot = np.zeros((nobj, lk.OT_COLS), np.float32)
-        ot[:, lk.OT_TFM:lk.OT_TFM + 12] = obj_tfm.reshape(nobj, 12)
-        ot[:, lk.OT_ITFM:lk.OT_ITFM + 12] = obj_itfm.reshape(nobj, 12)
-        ot[:, lk.OT_ITFM_GEN:lk.OT_ITFM_GEN + 12] = \
-            obj_itfm_gen.reshape(nobj, 12)
-        ot[:, lk.OT_COLOR:lk.OT_COLOR + 3] = obj_color
-        ot[:, lk.OT_RANDOM] = obj_random
-        ot[:, lk.OT_BOUNDS_LO:lk.OT_BOUNDS_LO + 3] = obj_blo
-        ot[:, lk.OT_BOUNDS_HI:lk.OT_BOUNDS_HI + 3] = obj_bhi
-        ot[:, lk.OT_VISIBILITY] = obj_visibility.astype(np.float32)
-        ot[:, lk.OT_FLAGS] = obj_flags.astype(np.float32)
-        packed["object_table"] = ot
-        return packed
 
     def _shader_slot(self, mesh, local_idx):
         """Mesh-local shader index -> scene shader slot."""
@@ -593,12 +614,14 @@ class Scene:
 def _boundary_tables(shaders, prim_table, ctab, ct):
     """Volume-boundary flags: (P,) bool per prim (its shader has a
     volume closure) and (C, ct) 0/1 float per cluster slot, the table
-    K3's dual form splits its two minima by. All zero without volume
-    shaders."""
+    K3's dual form splits its two minima by (None without cluster
+    tables). All zero without volume shaders."""
     shv = np.array([bool(s.has_volume) for s in shaders] or [False])
     pshader = np.clip(prim_table[:, lk.PT_SHADER].astype(np.int64), 0,
                       len(shv) - 1)
     prim_bnd = shv[pshader]
+    if ctab is None:
+        return prim_bnd, None
     pb = ci.META_COLS + 9 * ct
     pids = ctab[:, pb:pb + ct].astype(np.int64)
     bnd = np.where(pids >= 0,
@@ -637,10 +660,19 @@ def shader_statics(shaders):
     }
 
 
+def _to_tensor(a, device):
+    """A host array as a tensor on `device`; uint32 bit masks become
+    int32 (torch has no uint32 arithmetic)."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int32)
+    return torch.tensor(a, device=device)
+
+
 def _assemble_kg(arrays, ds, shaders, textures, lamp_types, device):
     return {
-        "dscene": {k: torch.tensor(np.array(arrays[k]), device=device)
-                   for k in KG_ARRAYS + KG_OPTIONAL if k in arrays},
+        "dscene": {k: _to_tensor(arrays[k], device)
+                   for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL if k in arrays},
         "cam": ds["cam"],
         "kint": ds["kint"],
         "filter_table": torch.tensor(np.array(ds["filter_table"]),
@@ -729,7 +761,7 @@ def kg_from_jax(kg_jax, device):
     if kg_jax.get("light_tree") is not None:
         raise NotImplementedError("the light tree is not ported")
     arrays = {k: np.asarray(kg_jax["dscene"][k])
-              for k in KG_ARRAYS + KG_OPTIONAL if k in kg_jax["dscene"]}
+              for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL if k in kg_jax["dscene"]}
     ds = {"cam": {k: np.asarray(v) for k, v in kg_jax["cam"].items()},
           "kint": dict(kg_jax["kint"]),
           "filter_table": np.asarray(kg_jax["filter_table"]),

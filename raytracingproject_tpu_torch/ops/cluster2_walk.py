@@ -47,9 +47,27 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit,
                                      has_instances=has_instances)
+    kernels.require(int(gmax) > 0, "gmax must be positive")
+    kernels.require(
+        smem_per_warp(sc_bounds.shape[0], int(gmax), ctable.shape[1])
+        <= SMEM_BYTES,
+        f"SC {sc_bounds.shape[0]} + gmax {gmax} entry tables do not fit one "
+        "warp's shared memory")
+    out = launch_two_level("rt_cluster2_walk", sc_bounds, cbounds, ctable,
+                           cluster_tris, gmax, o, d, tmin, tmax, visibility,
+                           shadow_any_hit, has_instances)
+    launches += 1
+    return out
+
+
+def launch_two_level(entry, sc_bounds, cbounds, ctable, cluster_tris, gmax,
+                     o, d, tmin, tmax, visibility, shadow_any_hit,
+                     has_instances):
+    """Check the arguments the two-level kernels share (K5's
+    rt_cluster2_walk, K6's rt_onehot2_walk: one argument list), allocate
+    the outputs and launch C entry point `entry`; returns the hit dict."""
     n, sc, c, w = o.shape[0], sc_bounds.shape[0], cbounds.shape[0], \
         ctable.shape[1]
-    gmax = int(gmax)
     req = kernels.require
     for name, x in (("sc_bounds", sc_bounds), ("cbounds", cbounds),
                     ("ctable", ctable), ("o", o), ("d", d), ("tmin", tmin),
@@ -64,10 +82,6 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
     req(c > 0 and cbounds.shape == (c, 6), "cbounds must be (C, 6)")
     req(ctable.shape[0] == c and w == ci.row_width(cluster_tris),
         "ctable must be (C, row_width(cluster_tris))")
-    req(gmax > 0, "gmax must be positive")
-    req(smem_per_warp(sc, gmax, w) <= SMEM_BYTES,
-        f"SC {sc} + gmax {gmax} entry tables do not fit one warp's shared "
-        "memory")
     req(o.shape == (n, 3) and d.shape == (n, 3), "o, d must be (N, 3)")
     for x in (tmin, tmax, visibility):
         req(x.shape == (n,), "tmin, tmax, visibility must be (N,)")
@@ -77,13 +91,12 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
     obj = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = kernels.load().rt_cluster2_walk(
+    rc = getattr(kernels.load(), entry)(
         sc_bounds.data_ptr(), cbounds.data_ptr(), ctable.data_ptr(), sc, c,
-        w, int(cluster_tris), gmax, o.data_ptr(), d.data_ptr(),
+        w, int(cluster_tris), int(gmax), o.data_ptr(), d.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), visibility.data_ptr(), n,
         int(bool(shadow_any_hit)), int(bool(has_instances)), t.data_ptr(),
         prim.data_ptr(), u.data_ptr(), v.data_ptr(), obj.data_ptr(),
         kernels.current_stream())
-    kernels.check_rc("cluster2_walk", rc)
-    launches += 1
+    kernels.check_rc(entry, rc)
     return {"t": t, "prim": prim, "u": u, "v": v, "object": obj}

@@ -25,11 +25,14 @@ aux and light passes, shadow catchers, holdouts, transparent shadows,
 fused NEE and the branched integrator.
 
 Intersection dispatch follows the JAX package's flags and precedence
-(ops/integrator.py :129-270 there): kg["use_brute"] selects the dense
-sweep (K1, not ported: raises). Two-level tables (sc_bounds, big and
-instanced scenes): kg["pallas_onehot2"] (opt-in) selects K6, not ported:
-raises; else kg["pallas_clusters2"] (default "auto" = on) the two-level
-walk K5 (ops/cluster2_walk.py). Single-level tables: kg["pallas_onehot"]
+(ops/integrator.py :129-270 there): kg["use_brute"] (scenes of at most
+1,024 static prims) selects the dense sweep K1 (ops/dense_sweep.py) for
+the closest hit, the NEE shadow test (its any-hit mode) and the volume
+dual sweep (its dual form). Two-level tables (sc_bounds, big and
+instanced scenes) under kg["pallas_clusters2"] (default "auto" = on):
+kg["pallas_onehot2"] (opt-in) selects K6 (ops/onehot2_walk.py) where the
+groups fit its inner walk (sc_gmax <= 128), else the two-level walk K5
+(ops/cluster2_walk.py). Single-level tables: kg["pallas_onehot"]
 (default "auto" = on) the per-lane walk K2 (ops/cluster_walk.py); else
 kg["pallas_clusters"] (default "auto" = on) the tile-shared walk K4
 (ops/tile_walk.py). With the chosen kernel's flag False the plain walk
@@ -37,9 +40,9 @@ ops/cluster_intersect.py runs, on CPU tensors only. The NEE shadow test
 and the volume dual sweep go through K3 (ops/occlusion_walk.py) when
 kg["pallas_occlusion"] allows (default: every single-level cluster scene
 that is not use_brute; never on two-level tables); otherwise the shadow
-test is the closest-hit walk's any-hit mode (K5's on big_instanced). On
-CUDA tensors the walks launch their kernels; on CPU tensors they run
-their plain torch versions.
+test is the closest-hit walk's any-hit mode (K5's or K6's on
+big_instanced). On CUDA tensors the sweeps and walks launch their
+kernels; on CPU tensors they run their plain torch versions.
 """
 
 from __future__ import annotations
@@ -53,9 +56,11 @@ from raytracingproject_tpu_torch.ops import closures as cl
 from raytracingproject_tpu_torch.ops import cluster2_walk
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk
+from raytracingproject_tpu_torch.ops import dense_sweep
 from raytracingproject_tpu_torch.ops import film as film_ops
 from raytracingproject_tpu_torch.ops import light as light_ops
 from raytracingproject_tpu_torch.ops import occlusion_walk
+from raytracingproject_tpu_torch.ops import onehot2_walk
 from raytracingproject_tpu_torch.ops import shade as shade_ops
 from raytracingproject_tpu_torch.ops import tile_walk
 from raytracingproject_tpu_torch.ops import volume as vol_ops
@@ -87,8 +92,6 @@ def _clamp_contrib(contrib, clamp):
 
 def _check_cluster_scene(kg):
     ds = kg["dscene"]
-    if kg["use_brute"]:
-        raise NotImplementedError("the dense sweep (K1) path is not ported")
     if "cluster_bounds" not in ds or int(kg.get("cluster_tris", 0)) <= 0:
         raise NotImplementedError("scene has no cluster tables")
     if kg.get("cluster_motion"):
@@ -102,21 +105,28 @@ def _flag(kg, name):
 
 
 def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
-    """Closest hit (any hit with shadow=True) through K5 on two-level
-    tables, K2 or K4 on single-level ones, or, on the CPU with the
-    kernel's flag off, the plain walk."""
-    _check_cluster_scene(kg)
+    """Closest hit (any hit with shadow=True) through K1 on use_brute
+    scenes, K5 or K6 on two-level tables, K2 or K4 on single-level ones,
+    or, on the CPU with the kernel's flag off, the plain walk."""
     ds = kg["dscene"]
+    if kg["use_brute"]:
+        return dense_sweep.intersect_brute_sweep(
+            ds["tri_verts_world"], ds["prim_object_packed"], o, d, tmin, tmax,
+            visibility=visibility,
+            object_visibility=ds["object_visibility"])
+    _check_cluster_scene(kg)
     inst = bool(kg.get("has_instances", False))
     args = (ds["cluster_bounds"], ds["cluster_table"],
             int(kg["cluster_tris"]), o, d, tmin, tmax, visibility)
     if "sc_bounds" in ds:
-        if bool(kg.get("pallas_onehot2", False)):  # opt-in only
-            raise NotImplementedError(
-                "the two-level one-hot walk (K6, pallas_onehot2) is not "
-                "ported")
         if _flag(kg, "pallas_clusters2"):
-            return cluster2_walk.intersect_clusters2_walk(
+            # K6 is opt-in only, and only where the groups fit its inner
+            # walk; K5 otherwise
+            walk2 = cluster2_walk.intersect_clusters2_walk
+            if bool(kg.get("pallas_onehot2", False)) \
+                    and onehot2_walk.fits(kg["sc_gmax"]):
+                walk2 = onehot2_walk.intersect_clusters2_onehot
+            return walk2(
                 ds["sc_bounds"], *args[:3], int(kg["sc_gmax"]), *args[3:],
                 shadow_any_hit=shadow, has_instances=inst)
         kernel_flags = "pallas_clusters2 (K5)"
@@ -164,11 +174,16 @@ def _occlusion(kg, o, d, tmin, tmax_closest, tmax_any):
 
 
 def _shadow_blocked(kg, o, d, tmin, tmax):
+    vis = torch.full(o.shape[:1], ob.PATH_RAY_SHADOW, dtype=torch.int32,
+                     device=o.device)
+    if kg["use_brute"]:
+        ds = kg["dscene"]
+        return dense_sweep.shadow_blocked_sweep(
+            ds["tri_verts_world"], ds["prim_object_packed"], o, d, tmin, tmax,
+            visibility=vis, object_visibility=ds["object_visibility"])
     if _use_occlusion_walk(kg):
         # pure any-hit: the closest window is empty ([tmin, tmin])
         return _occlusion(kg, o, d, tmin, tmin, tmax)[2]
-    vis = torch.full(o.shape[:1], ob.PATH_RAY_SHADOW, dtype=torch.int32,
-                     device=o.device)
     hit = _scene_intersect_tris(kg, o, d, tmin, tmax, vis, shadow=True)
     return hit["prim"] >= 0
 
@@ -291,15 +306,19 @@ def make_path_kernel(kg, px, py, pixel_index):
     def dual_sweep(o_s, d_s, on_any, on_closest, tmax_s):
         """((t_boundary, t_other), blocked) of one segment; disabled
         lanes get the empty window [1e-5, 1e-5]."""
-        if kg["use_brute"]:
-            raise NotImplementedError(
-                "the dense occlusion sweep is not ported")
         tmin = torch.full((n,), 1e-5, device=dev)
-        t_b, t_o, blk = _occlusion(
-            kg, o_s.contiguous(), d_s.contiguous(), tmin,
-            torch.where(on_closest, torch.clamp(tmax_s, max=um.RAY_TMAX),
-                        1e-5),
-            torch.where(on_any, tmax_s, 1e-5))
+        o_s, d_s = o_s.contiguous(), d_s.contiguous()
+        tmax_c = torch.where(on_closest,
+                             torch.clamp(tmax_s, max=um.RAY_TMAX), 1e-5)
+        tmax_a = torch.where(on_any, tmax_s, 1e-5)
+        if _use_occlusion_walk(kg):
+            t_b, t_o, blk = _occlusion(kg, o_s, d_s, tmin, tmax_c, tmax_a)
+        else:
+            t_b, t_o, blk = dense_sweep.occlusion_sweep(
+                ds["tri_verts_world"], ds["prim_object_packed"],
+                ds["prim_is_boundary"], o_s, d_s, tmin, tmax_c, tmax_a,
+                i32(ob.PATH_RAY_CAMERA), i32(ob.PATH_RAY_SHADOW),
+                ds["object_visibility"])
         return (t_b, t_o), blk
 
     def vol_nee_attenuation(sigma_t, boundary_hit, dist_l):

@@ -123,15 +123,17 @@ def _meta_rays(n=4):
 def test_two_level_dispatch(tkg):
     """Two-level tables go to K5 (on meta tensors, which are not CPU
     tensors, its wrapper refuses them: they are not CUDA tensors); with
-    pallas_clusters2 off the card refuses the plain walk; K6
-    (pallas_onehot2) is not ported; K3 never takes two-level tables."""
+    pallas_clusters2 off the card refuses the plain walk; pallas_onehot2
+    selects K6, whose wrapper refuses them alike (tests/
+    test_torch_onehot2.py tells the two wrappers apart); K3 never takes
+    two-level tables."""
     o, t, vis = _meta_rays()
     with pytest.raises(ValueError, match="CUDA tensor"):
         integ._scene_intersect_tris(tkg, o, o, t, t, vis)
     with pytest.raises(NotImplementedError, match="K5"):
         integ._scene_intersect_tris({**tkg, "pallas_clusters2": False}, o, o,
                                     t, t, vis)
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         integ._scene_intersect_tris({**tkg, "pallas_onehot2": True}, o, o,
                                     t, t, vis)
     assert not integ._use_occlusion_walk(tkg)

@@ -4,7 +4,10 @@ the card: K2 (ops/cluster_walk.py, closest and any hit) and K3
 the glossy Cornell box's cluster tables, and K4 (ops/tile_walk.py,
 closest and any hit) through the glossy and the volume_sss tables, and
 K5 (ops/cluster2_walk.py, closest and any hit, instance rows) through the
-big_instanced two-level tables. K3's
+big_instanced two-level tables, K6 (ops/onehot2_walk.py) through the same
+tables, and K1 (ops/dense_sweep.py: closest, any hit, the dual form and
+the Moeller-Trumbore mode) through the dense arrays of cornell_diffuse
+(36 prims) and volume_sss (1,008 prims). K3's
 dual form runs on a seeded random volume-boundary table (the glossy
 scene's own is all zeros), so both of its minima are exercised. Kernel
 and plain version share one operation order and the kernels build with
@@ -26,7 +29,10 @@ from raytracingproject_tpu_torch.app import examples
 from raytracingproject_tpu_torch.ops import cluster2_walk as k5
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk as k2
+from raytracingproject_tpu_torch.ops import dense_sweep as k1
+from raytracingproject_tpu_torch.ops import intersect as isect
 from raytracingproject_tpu_torch.ops import occlusion_walk as k3
+from raytracingproject_tpu_torch.ops import onehot2_walk as k6
 from raytracingproject_tpu_torch.ops import tile_walk as k4
 
 pytestmark = pytest.mark.cuda
@@ -148,6 +154,16 @@ def test_occlusion_walk_kernel(kg, form):
 def test_cluster2_walk_kernel(kg_instanced, any_hit):
     """K5 on the big_instanced tables (1,025 clusters in 65 superclusters,
     instance rows), rays from inside the scene's bounds."""
+    _check_walk2(k5, k5.intersect_clusters2_walk, kg_instanced, any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_onehot2_walk_kernel(kg_instanced, any_hit):
+    """K6 on the same tables and rays, against the same plain walk."""
+    _check_walk2(k6, k6.intersect_clusters2_onehot, kg_instanced, any_hit)
+
+
+def _check_walk2(module, fn, kg_instanced, any_hit):
     ds = kg_instanced["dscene"]
     o, d, tmax_any, _ = _rays(5, lo=-20.0, hi=20.0)
     tmin = torch.full((N,), 1e-4, device="cuda")
@@ -155,14 +171,14 @@ def test_cluster2_walk_kernel(kg_instanced, any_hit):
     vis = torch.ones(N, dtype=torch.int32, device="cuda")
     args = (ds["cluster_bounds"], ds["cluster_table"],
             kg_instanced["cluster_tris"], o, d, tmin, tmax, vis)
-    before = k5.launches
-    got = k5.intersect_clusters2_walk(
+    before = module.launches
+    got = fn(
         ds["sc_bounds"], *args[:3], kg_instanced["sc_gmax"], *args[3:],
         shadow_any_hit=any_hit, has_instances=True)
     ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit,
                                 has_instances=True)
     torch.cuda.synchronize()
-    assert k5.launches == before + 1
+    assert module.launches == before + 1
     assert (ref["prim"] >= 0).float().mean().item() > 0.05
     assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
     if any_hit:
@@ -176,3 +192,65 @@ def test_cluster2_walk_kernel(kg_instanced, any_hit):
     for k in ("u", "v"):
         torch.testing.assert_close(got[k][same], ref[k][same], rtol=0,
                                    atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def kg_cornell():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    s = examples.cornell_box(64, 64)
+    s.device_update()
+    return s.make_kernel_globals("cuda")
+
+
+@pytest.mark.parametrize("scene", ["cornell", "volume_sss"])
+@pytest.mark.parametrize("mode", ["closest", "any", "dual", "mt"])
+def test_dense_sweep_kernel(kg_cornell, kg_volume, scene, mode):
+    """K1's four modes, mixed per-lane visibility, a tenth of the windows
+    empty. Kernel and plain version share the block-of-8 winner rule, so
+    prims are equal, not only hit masks; t, u, v are equal to the bit."""
+    kg = kg_cornell if scene == "cornell" else kg_volume
+    ds = kg["dscene"]
+    tv, po, ov = ds["tri_verts_world"], ds["prim_object_packed"], \
+        ds["object_visibility"]
+    o, d, tmax_any, tmax_c = _rays(6)
+    r = np.random.default_rng(7)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    empty = torch.tensor(r.uniform(size=N) < 0.1, device="cuda")
+    tmax_any = torch.where(empty, tmin, tmax_any)
+    vis = torch.tensor(np.array([1, 8, 16, 4, 128], np.int32)[
+        r.integers(0, 5, N)], device="cuda")
+    before = k1.launches[mode]
+    if mode == "closest":
+        got = k1.intersect_brute_sweep(tv, po, o, d, tmin, tmax_any, vis, ov)
+        ref = isect.intersect_brute(tv, po, o, d, tmin, tmax_any, vis, ov)
+        assert (ref["prim"] >= 0).float().mean().item() > 0.05
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    elif mode == "any":
+        got = k1.shadow_blocked_sweep(tv, po, o, d, tmin, tmax_any, vis, ov)
+        ref = isect.shadow_blocked_brute(tv, po, o, d, tmin, tmax_any, vis,
+                                         ov)
+        assert ref.float().mean().item() > 0.05
+        assert torch.equal(got, ref)
+    elif mode == "dual":
+        bnd = ds["prim_is_boundary"]
+        if not bool(bnd.any()):   # cornell has no volume: plant a mask
+            bnd = torch.tensor(r.uniform(size=len(po)) < 0.3, device="cuda")
+        vis_a = torch.full((N,), 128, dtype=torch.int32, device="cuda")
+        args = (tv, po, bnd, o, d, tmin, tmax_c, tmax_any, vis, vis_a, ov)
+        got = k1.occlusion_sweep(*args)
+        ref = isect.intersect_brute_occlusion(*args)
+        assert (ref[0] < 1e29).any() and (ref[1] < 1e29).any()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    else:
+        _nb, v0, e1, e2, _po, _pv = isect.pack_tri_blocks(tv, po, None)
+        packets = [x.contiguous() for x in (v0, e1, e2)]
+        got = k1.intersect_mt_sweep(*packets, o, d, tmin, tmax_any)
+        ref = isect.intersect_brute_mt(*packets, o, d, tmin, tmax_any)
+        assert (ref["prim"] >= 0).float().mean().item() > 0.05
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    torch.cuda.synchronize()
+    assert k1.launches[mode] == before + 1

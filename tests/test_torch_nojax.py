@@ -3,7 +3,9 @@ machine has no JAX): in a subprocess whose import system refuses jax and
 raytracingproject_tpu, every module of raytracingproject_tpu_torch
 imports, and the glossy scene, the volume_sss scene (with its pinned
 dispatch) and the big_instanced scene compile and render 8x8, 2-spp
-images on the CPU. The sources
+images on the CPU, and so do the dense path's cornell_diffuse scene,
+volume_sss under the host compile's own dense dispatch and big_instanced
+with pallas_onehot2, each through the CLI's scene loader. The sources
 import neither jax nor anything of the JAX package."""
 
 import os
@@ -48,8 +50,22 @@ assert vimg.shape == (8, 8, 3) and np.isfinite(vimg).all() and vimg.mean() > 0
 bimg = render(examples.instanced_scene(8, 8, spp=2, grid=8), samples=2,
               chunk=2, device="cpu")
 assert bimg.shape == (8, 8, 3) and np.isfinite(bimg).all() and bimg.mean() > 0
+from raytracingproject_tpu_torch.app import cli
+means = []
+for spec in ("example:cornell", "example:volume_sss:dense",
+             "example:big_instanced:onehot2"):
+    sc, flags = cli.load_scene(spec)
+    sc.camera.set("width", 8)
+    sc.camera.set("height", 8)
+    sc.device_update()
+    kg = sc.make_kernel_globals("cpu")
+    kg.update(flags)
+    im = render(sc, samples=2, chunk=2, device="cpu", kg=kg)
+    assert im.shape == (8, 8, 3) and np.isfinite(im).all() and im.mean() > 0
+    means.append(float(im.mean()))
 assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
-print("NOJAX_OK", float(img.mean()), float(vimg.mean()), float(bimg.mean()))
+print("NOJAX_OK", float(img.mean()), float(vimg.mean()), float(bimg.mean()),
+      *means)
 """
 
 

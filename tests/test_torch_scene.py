@@ -86,6 +86,11 @@ def test_unported_variants_raise():
         tex.cornell_box(16, 16, spheres="glass")
     with pytest.raises(NotImplementedError):
         tex.cornell_box(16, 16, light_mode="area")
-    # the plain two-box Cornell (36 prims) takes the dense sweep (K1)
-    with pytest.raises(NotImplementedError):
-        tex.cornell_box(16, 16).device_update()
+    # the plain two-box Cornell (36 prims) compiles for the dense sweep
+    # (K1): use_brute, and no cluster tables under CLUSTER_MIN_PRIMS
+    plain = tex.cornell_box(16, 16)
+    plain.device_update()
+    kg = plain.make_kernel_globals("cpu")
+    assert kg["use_brute"] and kg["cluster_tris"] == 0
+    assert "cluster_table" not in kg["dscene"]
+    assert kg["dscene"]["tri_verts_world"].shape == (36, 3, 3)

@@ -146,6 +146,8 @@ def test_cuda_dispatch_refuses_the_plain_walk(pair):
         integ._scene_intersect_tris(kg, o, o, t, t,
                                     torch.empty(4, dtype=torch.int32,
                                                 device="meta"))
-    # the JAX compile's own choice, the dense sweep, is K1: not ported
-    with pytest.raises(NotImplementedError):
-        integ._scene_intersect_tris(tkg, o, o, t, t, t)
+    # the JAX compile's own choice, the dense sweep, goes to K1, whose
+    # wrapper refuses tensors that are not CUDA tensors: no plain sweep
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        integ._scene_intersect_tris(
+            tkg, o, o, t, t, torch.empty(4, dtype=torch.int32, device="meta"))
