@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's six main paths (raytracingproject_tpu_torch) on the
-card and fails (nonzero exit, no result line) if any phase fails:
+Drives the port's seven main paths (raytracingproject_tpu_torch) and its
+adaptive loop on the card and fails (nonzero exit, no result line) if any
+phase fails:
 
 1. environment: CUDA present; card name and power limit (nvidia-smi),
    torch and CUDA versions; TF32 off (raytracingproject_tpu_torch.device);
@@ -114,12 +115,40 @@ test):
    and on sun shadow rays, held and timed, and K5 timed on the same copied
    input beside it.
 
+glossy_nee_mis in fused-NEE mode (examples.GLOSSY_FUSED: the union walk K7
+answers every closest hit and every NEE shadow test; K2 and K3 are not
+called):
+
+26. K7 vs its plain version (ops/cluster_intersect.py
+   intersect_clusters_dual) on the glossy tables: 65,536 random closest
+   rays with mixed per-lane visibility paired with any-hit rays from nearby
+   origins toward the lamp, 65,536 camera rays paired with NEE-like shadow
+   rays, and each ray of the random pairs switched off by an empty window;
+   blocked equal everywhere, the closest hit equal off exact-t ties, tie
+   lanes held to an exact tie;
+27. accuracy: 64x64, 128 spp, chunk 16, clamp off, fused, against
+   twin_f64.npz["glossy_nee_mis"] under glossy's gate; K7 launched;
+28. full width: 512x512, 64 spp, chunk 16 through the CLI code path
+   (example:cornell:glossy:fused); finite, mean within 0.5% of
+   JAX_MEAN_512, K7 launched and K2 and K3 launched 0 times by this
+   render; the inputs of K7's third call (262,144 lanes) are copied;
+29. main-path shapes: at 262,144 lanes K7 on the copied input is held
+   against its plain version and timed; beside it, on the same copied
+   rays, K2 (the closest half) and K3 (the any-hit half), which is what
+   the fused call replaces;
+30. adaptive loop (session/adaptive.py render_adaptive_device): glossy
+   256x256, 32 spp, chunk 4, unfused and fused, once with threshold 0
+   (every count equals 32, image mean within 0.5% of the fixed render's at
+   that size) and once with threshold 0.02 (converged, fewer samples than
+   nominal, mean within 1%); the fused runs launch K7 only, the unfused
+   ones K2 and K3 only.
+
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. Each
 kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published peaks). The script takes about 6 minutes, the
+H100 SXM's published peaks). The script takes about 5 minutes, the
 kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
@@ -177,6 +206,7 @@ WRAPPERS = {
     "tile_walk": ("tile_walk", "intersect_clusters_tile"),
     "cluster2_walk": ("cluster2_walk", "intersect_clusters2_walk"),
     "onehot2_walk": ("onehot2_walk", "intersect_clusters2_onehot"),
+    "dual_walk": ("dual_walk", "intersect_clusters_dual_walk"),
     "dense_closest": ("dense_sweep", "intersect_brute_sweep"),
     "dense_any": ("dense_sweep", "shadow_blocked_sweep"),
     "dense_dual": ("dense_sweep", "occlusion_sweep"),
@@ -201,6 +231,10 @@ XFORM_OPS = 33 + 68
 # one ray against one triangle in Moeller-Trumbore arithmetic (counted from
 # csrc/dense_sweep.cu dense_mt_kernel)
 MT_OPS = 56
+# the adaptive phase: glossy at ADAPTIVE_SIZE^2, and the threshold of the
+# run that stops pixels early
+ADAPTIVE_SIZE, ADAPTIVE_SPP, ADAPTIVE_CHUNK = 256, 32, 4
+ADAPTIVE_THRESHOLD = 0.02
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -1033,6 +1067,203 @@ def dense_main_path_checks(kg, label, n, card, rec):
     return timed_cases(cases, n, card)
 
 
+def compare_dual_walk(name, ref, got):
+    """K7: blocked masks equal everywhere; the closest hit as compare_hits
+    holds a walk's. Returns the max |t| error off the tie lanes."""
+    (rhit, rblk), (ghit, gblk) = ref, got
+    assert torch.equal(rblk, gblk), f"{name}: blocked masks differ"
+    err = compare_hits(name, rhit, ghit)
+    log(f"[kernels] {name}: blocked equal "
+        f"({float(gblk.float().mean()):.4f} blocked)")
+    return err
+
+
+def dual_bound(args, out):
+    """(bound ms, bound_by) of one K7 call. Bytes: tables, both rays and
+    results once. Operations: each ray with a non-empty window tests every
+    cluster box once; the closest ray tests the triangles of each cluster
+    it enters before its final t, the any-hit ray one triangle where it is
+    blocked and else those of every cluster it enters."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    (cb, ctab, ct, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a,
+     vis_a) = args
+    hit, blocked = out
+    per = _prims_per_cluster(ctab, int(ct))[:, None]
+    live_c, live_a = tmax_c > tmin_c, tmax_a > tmin_a
+    entry = ci.entry_table(cb, o_c, d_c, tmin_c, tmax_c)
+    in_c = (entry < ci.INF) & (entry < hit["t"][None]) & live_c[None]
+    tris = (in_c.to(torch.float64) * per).sum(0)
+    entry = ci.entry_table(cb, o_a, d_a, tmin_a, tmax_a)
+    in_a = (entry < ci.INF) & live_a[None]
+    tris = tris + torch.where(blocked, 1.0,
+                              (in_a.to(torch.float64) * per).sum(0))
+    boxes = float(live_c.sum() + live_a.sum()) * cb.shape[0]
+    ops = boxes * SLAB_OPS + float(tris.sum()) * TRI_OPS
+    return _bound(_nbytes(*args, *hit.values(), blocked), ops)
+
+
+def check_dual(kg, n_check, rng):
+    """K7 against its plain version on the glossy tables: random closest
+    rays with mixed per-lane visibility paired with any-hit rays from
+    nearby origins toward the lamp, each ray of those pairs switched off in
+    turn by an empty window, and camera rays paired with NEE-like shadow
+    rays. Returns the max |t| error."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    dev = ds["cluster_table"].device
+    tabs = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]))
+    side = int(round(n_check ** 0.5))
+    k7 = wrapper("dual_walk")
+    err = 0.0
+
+    def held(label, *rays):
+        args = (*tabs, *rays, torch.full((rays[0].shape[0],), 128,
+                                         dtype=torch.int32, device=dev))
+        ref, got = ci.intersect_clusters_dual(*args), k7(*args)
+        sync()
+        return compare_dual_walk(f"dual_walk {label}", ref, got), got
+
+    # random pairs
+    o, d = random_rays(n_check, rng, dev)
+    n = o.shape[0]
+    o_a = (o + 0.05).contiguous()
+    to_l = torch.tensor([278.0, 548.0, 279.0], device=dev) - o_a
+    dist = to_l.norm(dim=-1)
+    d_a = (to_l / dist[:, None]).contiguous()
+    tmin = torch.full((n,), 1e-4, device=dev)
+    big = torch.full((n,), 1e30, device=dev)
+    empty = torch.full((n,), -1.0, device=dev)
+    tmax_a = (dist * 0.999).contiguous()
+    vis_c = torch.tensor(
+        np.array([1, 8, 16], np.int32)[rng.integers(0, 3, n)], device=dev)
+    e, (hit, blk) = held("random", o, d, tmin, big, vis_c, o_a, d_a, tmin,
+                         tmax_a)
+    err = max(err, e)
+    assert 0.05 < float(blk.float().mean()) < 0.95
+    assert float((hit["prim"] >= 0).float().mean()) > 0.05
+    e, (hit, blk) = held("random, any-hit ray off", o, d, tmin, big, vis_c,
+                         o_a, d_a, tmin, empty)
+    err = max(err, e)
+    assert not bool(blk.any()) and bool((hit["prim"] >= 0).any())
+    e, (hit, blk) = held("random, closest ray off", o, d, tmin, empty, vis_c,
+                         o_a, d_a, tmin, tmax_a)
+    err = max(err, e)
+    assert bool((hit["prim"] == -1).all()) and torch.equal(hit["t"], empty)
+    assert bool(blk.any())
+
+    # camera rays with NEE-like shadow rays
+    o, d = camera_rays(kg, side, side, dev)
+    n = o.shape[0]
+    so, sd, stmin, stmax = shadow_rays(kg, o, d, rng)
+    e, (hit, blk) = held(
+        "camera", o, d, torch.zeros(n, device=dev),
+        torch.full((n,), 1e30, device=dev),
+        torch.full((n,), 1, dtype=torch.int32, device=dev), so, sd, stmin,
+        stmax)
+    assert bool(blk.any()) and not bool(blk.all())
+    return {"dual_walk": max(err, e)}
+
+
+def fused_main_path_checks(kg, side, card, rec):
+    """At side x side lanes: K7 on the fused render's recorded input, and
+    on the same rays K2 (the closest half) and K3's surface form (the
+    any-hit half), the two calls the union walk replaces."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ra = inspect.signature(wrapper("dual_walk")).bind(*rec["args"],
+                                                      **rec["kw"])
+    ra.apply_defaults()
+    a = ra.arguments
+    assert not a["has_instances"] and not a["has_motion"]
+    args = tuple(a.values())[:13]
+    (cb, ctab, ct, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a,
+     _vis_a) = args
+    n = o_c.shape[0]
+    assert n == side * side, "recorded call is not full width"
+    kinds = sorted(int(x) for x in torch.unique(vis_c).cpu())
+    log(f"[main-path] recorded K7 input: visibility values {kinds}, lane "
+        f"shares {[round(float((vis_c == k).float().mean()), 4) for k in kinds]}"
+        f"; closest window on {float((tmax_c > tmin_c).float().mean()):.4f}, "
+        f"any-hit window on {float((tmax_a > tmin_a).float().mean()):.4f} of "
+        "the lanes")
+    assert len(kinds) > 1, "the recorded K7 call holds no bounce rays"
+    assert bool((tmax_a > tmin_a).any()), "the recorded K7 call tests no shadow"
+    k7, k2, k3 = (wrapper(x) for x in ("dual_walk", "cluster_walk",
+                                       "occlusion_walk"))
+    closest = (cb, ctab, ct, o_c, d_c, tmin_c, tmax_c, vis_c)
+    # the unfused step gives a lane without a shadow test the empty window
+    # [tmin, tmin]
+    occ = (cb, ctab, kg["dscene"]["cluster_boundary"], ct, o_a, d_a, tmin_a,
+           tmin_a, torch.maximum(tmax_a, tmin_a), 1, 128)
+    cases = {
+        "K7 dual render": (
+            lambda: k7(*args), lambda: ci.intersect_clusters_dual(*args),
+            "dual_walk", compare_dual_walk,
+            lambda out: dual_bound(args, out)),
+        "K2 closest on K7's render input": (
+            lambda: k2(*closest), lambda: ci.intersect_clusters(*closest),
+            "cluster_walk", compare_hits,
+            lambda out: walk_bound(closest, {}, out)),
+        "K3 surface on K7's render input": (
+            lambda: k3(*occ), lambda: ci.occlusion_clusters(*occ),
+            "occlusion_walk", compare_occlusion,
+            lambda out: occlusion_bound(occ, out)),
+    }
+    return timed_cases(cases, n, card)
+
+
+def adaptive_checks(dev, card):
+    """render_adaptive_device on the glossy scene, unfused and fused: with
+    threshold 0 every pixel takes its whole budget and the image is the
+    fixed render's; with ADAPTIVE_THRESHOLD the loop converges on fewer
+    samples and the image mean stays within 1%."""
+    from raytracingproject_tpu_torch.app import examples
+    from raytracingproject_tpu_torch.session.adaptive import \
+        render_adaptive_device
+    from raytracingproject_tpu_torch.session.session import render
+    size, spp, chunk = ADAPTIVE_SIZE, ADAPTIVE_SPP, ADAPTIVE_CHUNK
+    scene = examples.cornell_box(size, size, spp=spp, spheres="glossy")
+    scene.device_update()
+    fixed = float(render(scene, spp, chunk=16, device=dev,
+                         kg=scene.make_kernel_globals(dev))
+                  .astype(np.float64).mean())
+    for fused in (False, True):
+        kg = scene.make_kernel_globals(dev)
+        if fused:
+            kg.update(examples.GLOSSY_FUSED)
+        for thr in (0.0, ADAPTIVE_THRESHOLD):
+            reset_launches()
+            t0 = time.perf_counter()
+            L, _A, counts, st = render_adaptive_device(
+                kg, size, size, spp, threshold=thr, chunk=chunk)
+            sync()
+            dt = time.perf_counter() - t0
+            ran = {k: launches_of(k) for k in ("dual_walk", "cluster_walk",
+                                               "occlusion_walk")}
+            mean = float((L.astype(np.float64) / counts[:, None]).mean())
+            rel = abs(mean / fixed - 1.0)
+            log(f"[adaptive] glossy {size}x{size}, budget {spp}, chunk "
+                f"{chunk}, threshold {thr}, {'fused' if fused else 'unfused'}"
+                f": {dt:.3f} s, {st['samples_rendered'] / dt / 1e6:.4f} "
+                f"Msamples/s on {card}; {st['dispatches']} rounds, "
+                f"{st['samples_rendered']} of {st['samples_nominal']} "
+                f"samples, counts {st['min_samples']}..{st['max_samples']}, "
+                f"mean {mean:.8f} (fixed render {fixed:.8f}, rel {rel:.2e}); "
+                f"launches {ran}")
+            assert np.isfinite(L).all() and st["converged"] \
+                and st["n_active"] == 0
+            if fused:
+                assert ran["dual_walk"] > 0 and ran["cluster_walk"] == 0 \
+                    and ran["occlusion_walk"] == 0
+            else:
+                assert ran["dual_walk"] == 0 and ran["cluster_walk"] > 0 \
+                    and ran["occlusion_walk"] > 0
+            if thr == 0.0:
+                assert (counts == spp).all() and rel <= 0.005
+            else:
+                assert st["samples_rendered"] < st["samples_nominal"]
+                assert rel <= 0.01
+
+
 def merge(errs, new):
     """Keep the largest error per kernel."""
     for k, v in new.items():
@@ -1167,11 +1398,30 @@ def main():
                                       o_rec["onehot2_walk"], "onehot2_walk")
     merge(errs, e)
 
+    # ---- glossy_nee_mis, fused-NEE mode: 26. kernel checks; 27. accuracy;
+    # 28. full width; 29. main-path shapes ----
+    merge(errs, check_dual(kg, N_CHECK, rng))
+    before = launches_of("dual_walk")
+    accuracy(dev, "glossy_nee_mis",
+             examples.cornell_box(64, 64, spp=128, spheres="glossy"),
+             examples.GLOSSY_FUSED, 5.7e-5, 0.0007)
+    assert launches_of("dual_walk") > before, "the fused render ran unfused"
+    f_launch, f_rec, f_st = full_width(
+        card, "example:cornell:glossy:fused", 512, 64, JAX_MEAN_512, 0.005,
+        ("dual_walk",))
+    assert f_launch["cluster_walk"] == 0 and f_launch["occlusion_walk"] == 0
+    f_times, e = fused_main_path_checks(kg, 512, card, f_rec["dual_walk"])
+    merge(errs, e)
+
+    # ---- 30. the adaptive loop ----
+    adaptive_checks(dev, card)
+
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),
              "cornell_diffuse": (c_launch, c_st),
              "volume_sss_dense": (d_launch, d_st),
-             "big_instanced_onehot2": (o_launch, o_st)}
+             "big_instanced_onehot2": (o_launch, o_st),
+             "glossy_nee_mis_fused": (f_launch, f_st)}
     by_path = {name: {path: launch[name]
                       for path, (launch, _st) in paths.items()}
                for name in WRAPPERS}
@@ -1179,7 +1429,7 @@ def main():
         f"{path} {st['msamples_per_s']:.4f}"
         for path, (_l, st) in paths.items()) + f" ({card})")
     times = {**g_times, **v_times, **b_times, **c_times, **d_times,
-             **o_times}
+             **o_times, **f_times}
     # kernel, source, the TPU kernel's pallas_call, its timed case, the
     # prefix of its other cases
     k1 = ("dense_sweep", "pallas_intersect.py:156")
@@ -1196,7 +1446,9 @@ def main():
             ("cluster2_walk", "cluster2_walk", "pallas_cluster.py:565",
              "K5 closest render", "K5"),
             ("onehot2_walk", "onehot2_walk", "pallas_onehot.py:619",
-             "K6 closest render", "K6"))
+             "K6 closest render", "K6"),
+            ("dual_walk", "dual_walk", "pallas_onehot.py:929",
+             "K7 dual render", "K7"))
     kern = []
     for name, source, tpu, case, prefix in rows:
         tm = times[case]

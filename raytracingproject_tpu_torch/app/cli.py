@@ -2,7 +2,7 @@
 
   python -m raytracingproject_tpu_torch example:cornell \\
       --samples 64 --width 512 --height 512 --chunk 32 --device cuda
-  python -m raytracingproject_tpu_torch example:cornell:glossy \\
+  python -m raytracingproject_tpu_torch example:cornell:glossy[:fused] \\
       --samples 64 --width 512 --height 512 --device cuda --output out.png
   python -m raytracingproject_tpu_torch example:volume_sss[:dense] \\
       --samples 32 --width 256 --height 256 --device cuda
@@ -12,10 +12,14 @@
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
 example:cornell is the Cornell box with its two boxes (36 prims: the dense
-sweep K1 for every closest hit and shadow test). example:volume_sss
-renders with its pinned dispatch (examples.VOLUME_SSS_DISPATCH: K4 walk,
-K3 occlusion), example:volume_sss:dense with the host compile's own choice
-for its 1,008 prims (K1 in its closest and dual forms).
+sweep K1 for every closest hit and shadow test). example:cornell:glossy
+is the glossy_nee_mis configuration (K2 for the closest hit, K3 for the
+shadow test); example:cornell:glossy:fused renders it in fused-NEE mode
+(examples.GLOSSY_FUSED: one union walk K7 per bounce for both).
+example:volume_sss renders with its pinned dispatch
+(examples.VOLUME_SSS_DISPATCH: K4 walk, K3 occlusion),
+example:volume_sss:dense with the host compile's own choice for its 1,008
+prims (K1 in its closest and dual forms).
 example:big_instanced is instanced_scene(grid=8), the two-level instanced
 scene (K5 for every closest hit and shadow test); example:big_instanced:
 onehot2 opts into K6 for both (examples.BIG_INSTANCED_ONEHOT2).
@@ -36,6 +40,7 @@ def build_parser():
         description="PyTorch/CUDA port of the path tracer")
     p.add_argument("scene",
                    help="'example:cornell[:variant]' | "
+                   "'example:cornell:glossy:fused' | "
                    "'example:volume_sss[:dense]' | "
                    "'example:big_instanced[:onehot2]'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
@@ -62,8 +67,11 @@ def load_scene(spec):
             and parts[2:] in ([], ["onehot2"]):
         return (examples.instanced_scene(256, 256, spp=16, grid=8),
                 examples.BIG_INSTANCED_ONEHOT2 if parts[2:] else {})
-    if len(parts) < 2 or parts[0] != "example" or parts[1] != "cornell":
+    if parts == ["example", "cornell", "glossy", "fused"]:
+        return examples.cornell_box(spheres="glossy"), examples.GLOSSY_FUSED
+    if parts[:2] != ["example", "cornell"] or len(parts) > 3:
         raise SystemExit(f"unknown scene '{spec}' (try example:cornell, "
+                         "example:cornell:glossy[:fused], "
                          "example:volume_sss or example:big_instanced)")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})

@@ -17,6 +17,8 @@ benchmark pins for volume_sss, the tile-shared cluster walk (K4) and the
 occlusion walk (K3); without them its 1,008 prims select the dense sweep
 (K1), the host compile's own choice. BIG_INSTANCED_ONEHOT2 opts the
 two-level scene into the per-lane inner walk (K6) in place of K5.
+GLOSSY_FUSED opts the glossy Cornell box into fused-NEE mode: one union
+walk (K7) per bounce answers the shadow test and the next closest hit.
 """
 
 from __future__ import annotations
@@ -157,6 +159,7 @@ def sss_shader(name, color=(0.9, 0.3, 0.2), radius=(10.0, 5.0, 3.0),
 VOLUME_SSS_DISPATCH = {"use_brute": False, "pallas_clusters": True,
                        "pallas_onehot": False, "pallas_occlusion": True}
 BIG_INSTANCED_ONEHOT2 = {"pallas_onehot2": True}
+GLOSSY_FUSED = {"fused_nee": True}
 
 
 def volume_sss_scene(width=256, height=256, spp=32, density=0.004):

@@ -1,13 +1,18 @@
 """Where the render's time goes on the card.
 
     python -m raytracingproject_tpu_torch.app.profile_render \\
-        [--scene glossy|volume_sss|big_instanced|cornell|volume_sss_dense|
-                 big_instanced_onehot2] [--device cuda] [--out profile.json]
+        [--scene glossy|glossy_fused|volume_sss|big_instanced|cornell|
+                 volume_sss_dense|big_instanced_onehot2] [--device cuda]
+        [--out profile.json]
 
 Renders one configuration of chip_smoke.py at its full width, one lane
 per pixel, chunk by chunk through ops/integrator.py
 render_samples_regen: `glossy` is the glossy Cornell box
-(example:cornell:glossy) at 512x512 through K2 and K3; `volume_sss` is
+(example:cornell:glossy) at 512x512 through K2 and K3, `glossy_fused`
+the same in fused-NEE mode (example:cornell:glossy:fused), where one call
+of the union walk K7 per iteration answers the shadow test and the next
+closest hit (and one more per chunk traces the first camera rays);
+`volume_sss` is
 example:volume_sss at 256x256 with its pinned dispatch
 (examples.VOLUME_SSS_DISPATCH) through K4 and K3's dual form;
 `big_instanced` is example:big_instanced at 256x256 through K5, which
@@ -48,22 +53,27 @@ K3_KERNEL = "occlusion_walk_kernel"
 TOP = 12   # device kernels listed, by total time
 # scene -> (example spec, width, closest-hit walk module, its kernel name,
 # the walk's calls per wavefront iteration, the shadow-test kernel where
-# it is another one)
+# it is another one, the walk's calls per chunk outside the iterations)
 SCENES = {
     "glossy": ("example:cornell:glossy", 512, "cluster_walk",
-               "cluster_walk_kernel", 1, K3_KERNEL),
+               "cluster_walk_kernel", 1, K3_KERNEL, 0),
+    # K7 answers the shadow test and the next closest hit of every
+    # iteration, and the first camera rays of the chunk
+    "glossy_fused": ("example:cornell:glossy:fused", 512, "dual_walk",
+                     "dual_walk_kernel", 1, None, 1),
     "volume_sss": ("example:volume_sss", 256, "tile_walk",
-                   "tile_walk_kernel", 1, K3_KERNEL),
+                   "tile_walk_kernel", 1, K3_KERNEL, 0),
     # K5 (or K6) answers the closest hit and the shadow test of every
     # iteration
     "big_instanced": ("example:big_instanced", 256, "cluster2_walk",
-                      "cluster2_walk_kernel", 2, None),
+                      "cluster2_walk_kernel", 2, None, 0),
     "big_instanced_onehot2": ("example:big_instanced:onehot2", 256,
-                              "onehot2_walk", "onehot2_walk_kernel", 2, None),
+                              "onehot2_walk", "onehot2_walk_kernel", 2, None,
+                              0),
     "cornell": ("example:cornell", 512, "dense_sweep",
-                "dense_closest_kernel", 1, "dense_any_kernel"),
+                "dense_closest_kernel", 1, "dense_any_kernel", 0),
     "volume_sss_dense": ("example:volume_sss:dense", 256, "dense_sweep",
-                         "dense_closest_kernel", 1, "dense_dual_kernel"),
+                         "dense_closest_kernel", 1, "dense_dual_kernel", 0),
 }
 
 
@@ -105,8 +115,8 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
     from raytracingproject_tpu_torch.device import get_device
     from raytracingproject_tpu_torch.ops import integrator as integ
     from raytracingproject_tpu_torch.session.session import pixel_wavefront
-    spec, full_width, walk_name, walk_kernel, per_iter, shadow_kernel = \
-        SCENES[scene]
+    (spec, full_width, walk_name, walk_kernel, per_iter, shadow_kernel,
+     per_chunk) = SCENES[scene]
     walk = importlib.import_module(
         f"raytracingproject_tpu_torch.ops.{walk_name}")
     width = width or full_width
@@ -123,7 +133,7 @@ def profile(scene="glossy", width=None, spp=16, profile_spp=4,
         before = _launches(walk)
         integ.render_samples_regen(kg, px, py, pidx, start, n)
         _sync(dev)
-        return (_launches(walk) - before) // per_iter
+        return max(_launches(walk) - before - per_chunk, 0) // per_iter
 
     # ---- 1. warm-up ----
     chunk(0, profile_spp)

@@ -56,6 +56,11 @@ SIGNATURES = {
     "onehot2_walk.cu": {"rt_onehot2_walk": [
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P]},
+    # cbounds ctable C W ct | o d tmin tmax vis of the closest ray | the
+    # same of the any-hit ray | n t prim u v obj blocked stream
+    "dual_walk.cu": {"rt_dual_walk": [
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        _P, _P, _P, _P, _P, _P, _P]},
     "dense_sweep.cu": {
         # tri_verts prim_object obj_vis P o d tmin tmax vis n t prim u v obj
         # stream

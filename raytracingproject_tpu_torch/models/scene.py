@@ -721,7 +721,7 @@ def estimate_constant_emission(shader):
 _UNPORTED_FLAGS = ("cluster_motion", "has_motion",
                    "has_deform_motion", "has_shadow_catcher",
                    "film_transparent", "light_passes", "aux_passes",
-                   "fused_nee", "sorted_shading")
+                   "sorted_shading")
 
 
 def _convert_shader(jshader):
@@ -777,5 +777,7 @@ def kg_from_jax(kg_jax, device):
     textures = TextureStore.from_numpy(
         np.asarray(jt.data), jt.sizes, device, mips=getattr(jt, "mips", {}),
         pixel_angle=getattr(jt, "pixel_angle", None))
-    return _assemble_kg(arrays, ds, shaders, textures,
-                        list(kg_jax.get("lamp_types") or []), device)
+    kg = _assemble_kg(arrays, ds, shaders, textures,
+                      list(kg_jax.get("lamp_types") or []), device)
+    kg["fused_nee"] = bool(kg_jax.get("fused_nee", False))
+    return kg

@@ -8,11 +8,11 @@ cluster is one row of `cluster_table`:
   [object id per tri] [visibility per tri]
 padded with prim id -1.
 
-`intersect_clusters` and `occlusion_clusters` are plain torch: every
-lane walks its clusters front to back through a (C, N) entry-distance
-table. They are what the CPU runs and what the CUDA kernels
-(ops/cluster_walk.py K2, ops/tile_walk.py K4, ops/cluster2_walk.py K5,
-ops/occlusion_walk.py K3) are held against.
+`intersect_clusters`, `intersect_clusters_dual` and `occlusion_clusters`
+are plain torch: every lane walks its clusters front to back through a
+(C, N) entry-distance table. They are what the CPU runs and what the CUDA
+kernels (ops/cluster_walk.py K2, ops/tile_walk.py K4, ops/cluster2_walk.py
+K5, ops/occlusion_walk.py K3, ops/dual_walk.py K7) are held against.
 
 Instancing: an instanced scene packs every instance's BLAS clusters with
 world-space bounds and the instance's world->object transform in the
@@ -202,6 +202,26 @@ def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
         if shadow_any_hit:
             entry = torch.where((bp >= 0)[None], INF, entry)
     return {"t": bt, "prim": bp, "u": bu, "v": bv, "object": bo}
+
+
+def intersect_clusters_dual(cbounds, ctable, cluster_tris, o_c, d_c, tmin_c,
+                            tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a, vis_a):
+    """The union walk's contract (JAX counterpart: ops/pallas_onehot.py
+    intersect_clusters_onehot_dual), computed as the two single walks it
+    stands for: per lane the closest hit of ray (o_c, d_c) inside
+    (tmin_c, tmax_c) under vis_c, and whether anything visible under
+    vis_a blocks ray (o_a, d_a) inside (tmin_a, tmax_a). Returns (hit
+    dict t, prim, u, v, object, blocked (N,) bool).
+
+    An empty window (tmax < tmin) disables that ray of the lane: the any
+    ray is then never blocked, the closest ray misses. A miss returns
+    t = min(tmax_c, RAY_TMAX) (so a disabled closest ray returns its own
+    negative tmax_c) and prim = object = -1."""
+    hit = intersect_clusters(cbounds, ctable, cluster_tris, o_c, d_c,
+                             tmin_c, tmax_c, vis_c)
+    shadow = intersect_clusters(cbounds, ctable, cluster_tris, o_a, d_a,
+                                tmin_a, tmax_a, vis_a, shadow_any_hit=True)
+    return hit, shadow["prim"] >= 0
 
 
 def occlusion_clusters(cbounds, ctable, cboundary, cluster_tris, o, d,

@@ -1,8 +1,9 @@
 """Wavefront path integrator (JAX counterpart:
 raytracingproject_tpu/ops/integrator.py make_path_kernel :432,
-render_samples_regen :1879, _scene_intersect_tris :171,
-_use_pallas_occlusion :151, _shadow_blocked :328, _offset_eps :38,
-_clamp_contrib :420).
+path_trace_sample :1827, render_samples :1854, render_samples_regen
+:1879, render_samples_adaptive_chunk :2087, _scene_intersect_tris :171,
+_use_pallas_occlusion :151, _use_fused_nee :273, _shadow_blocked :328,
+_offset_eps :38, _clamp_contrib :420).
 
 `make_path_kernel` returns (start_paths, step): start_paths creates a
 fresh per-lane path state from camera rays; step advances every lane one
@@ -14,15 +15,33 @@ with MIS over emissive triangles and distant lamps and a shadow test
 scenes the dual sweep with medium attenuation and equiangular NEE,
 :1141-1540),
 BSDF or phase-function bounce with SSS entry and the volume stack
-(:1540-1760), Russian roulette. `render_samples_regen` keeps the
-wavefront full by restarting dead lanes on their pixel's next sample
-(the JAX lax.while_loop becomes a Python loop). Same sample sequence and
-the same per-sample accumulation order as the JAX package.
+(:1540-1760), Russian roulette.
+
+Fused-NEE mode (kg["fused_nee"], opt-in; `_use_fused_nee` holds the
+scenes it serves: plain surfaces on single-level cluster tables with at
+least one light): `make_path_kernel` returns (start_paths, step, seed,
+finish). step reads the hit its ray was given by the previous union walk
+and defers its shadow test; finish answers that shadow test and the next
+ray's closest hit in one call of K7 (ops/dual_walk.py) and then adds the
+NEE contribution, in the same place of the sample's accumulation order
+as the unfused step; seed traces a fresh state's camera rays. A scene
+the mode does not serve renders unfused.
+
+Render loops: `path_trace_sample` and `render_samples` trace a fixed grid of
+max_bounce + 1 steps per sample; `render_samples_regen` keeps the
+wavefront full by restarting dead lanes on their pixel's next sample, and
+`render_samples_adaptive_chunk` does so from a per-lane first sample and
+also returns the even samples' sum (the JAX lax.while_loops are Python
+loops here). In fused mode a dying lane is merged and regenerated after
+the shading half, so its last shadow ray and its next sample's camera
+ray share one K7 call. Same sample sequence and the same per-sample
+accumulation order as the JAX package, so the fixed grid and the
+regenerating loops agree to the bit.
 
 Not ported, and raising: heterogeneous media, volume NEE without the
 dual sweep, background light sampling (bg_pmf > 0), AO/bevel nodes, bump,
 aux and light passes, shadow catchers, holdouts, transparent shadows,
-fused NEE and the branched integrator.
+debug_ablate and the branched integrator.
 
 Intersection dispatch follows the JAX package's flags and precedence
 (ops/integrator.py :129-270 there): kg["use_brute"] (scenes of at most
@@ -57,6 +76,7 @@ from raytracingproject_tpu_torch.ops import cluster2_walk
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk
 from raytracingproject_tpu_torch.ops import dense_sweep
+from raytracingproject_tpu_torch.ops import dual_walk
 from raytracingproject_tpu_torch.ops import film as film_ops
 from raytracingproject_tpu_torch.ops import light as light_ops
 from raytracingproject_tpu_torch.ops import occlusion_walk
@@ -68,6 +88,7 @@ from raytracingproject_tpu_torch.utils import math as um
 from raytracingproject_tpu_torch.utils import rng as rngu
 
 RAY_EPS = 1e-4
+HIT_KEYS = ("t", "prim", "u", "v", "object")
 
 
 def _offset_eps(P, t):
@@ -188,14 +209,51 @@ def _shadow_blocked(kg, o, d, tmin, tmax):
     return hit["prim"] >= 0
 
 
+def _use_fused_nee(kg):
+    """Whether kg["fused_nee"] (opt-in) applies: one union walk per bounce
+    answers this bounce's NEE shadow test and the next ray's closest hit
+    (K7). Only the plain-surface configuration the union walk models: no
+    volume or subsurface (they have their own dual sweep), no transparent
+    shadows, single-level cluster tables walked per lane (the
+    pallas_onehot flag), no motion rows, at least one light."""
+    if not kg.get("fused_nee", False):
+        return False
+    feats = kg.get("features") or {}
+    if feats.get("has_volume") or feats.get("has_subsurface"):
+        return False
+    if any(kg.get("shader_shadow_transparent", ())):
+        return False
+    ds = kg["dscene"]
+    if "cluster_bounds" not in ds or int(kg.get("cluster_tris", 0)) <= 0 \
+            or "sc_bounds" in ds or kg["use_brute"]:
+        return False
+    if kg.get("cluster_motion") or kg.get("has_motion"):
+        return False
+    if int(ds["light_dist_type"].shape[0]) == 0:
+        return False
+    return _flag(kg, "pallas_onehot")
+
+
+def _dual_walk(kg, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmax_a, vis_a):
+    """K7: (closest hit of ray c, blocked of ray a); the any-hit window
+    starts at 1e-5 and an empty window (tmax < tmin) disables a ray."""
+    ds = kg["dscene"]
+    tmin_a = torch.full_like(tmax_a, 1e-5)
+    return dual_walk.intersect_clusters_dual_walk(
+        ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
+        o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a, vis_a,
+        has_instances=bool(kg.get("has_instances", False)))
+
+
 _UNPORTED_KG = ("has_shadow_catcher", "light_passes", "aux_passes",
-                "fused_nee", "film_transparent", "sorted_shading",
-                "ray_override", "debug_ablate")
+                "film_transparent", "sorted_shading", "ray_override",
+                "debug_ablate")
 
 
 def make_path_kernel(kg, px, py, pixel_index):
-    """Build (start_paths, step) for a wavefront of pixels (px, py,
-    pixel_index: (N,) int64 tensors on the render device)."""
+    """Build (start_paths, step), or in fused-NEE mode (start_paths, step,
+    seed, finish), for a wavefront of pixels (px, py, pixel_index: (N,)
+    int64 tensors on the render device)."""
     for k in _UNPORTED_KG:
         if kg.get(k):
             raise NotImplementedError(f"kg['{k}'] is not ported")
@@ -217,6 +275,7 @@ def make_path_kernel(kg, px, py, pixel_index):
     rng_hash = rngu.pixel_rng_hash(pixel_index, seed)
     ds = kg["dscene"]
     has_lights = int(ds["light_dist_type"].shape[0]) > 0
+    fused = _use_fused_nee(kg)
     if float(ds["bg_pmf"]) > 0.0:
         raise NotImplementedError("background light sampling is not ported")
     has_volume = bool(features.get("has_volume", False))
@@ -459,8 +518,14 @@ def make_path_kernel(kg, px, py, pixel_index):
         (bu, lu, rr_u, sel_u), (bv, lv, lobe_u, phase_v) = rng2_batch(
             bdims, st["sample"])
 
-        hit = _scene_intersect_tris(kg, st["o"], st["d"], st["tmin"],
-                                    st["tmax"], vis_of_flag(st["path_flag"]))
+        if fused:
+            # the hit this ray was given by the previous union walk (or
+            # by seed)
+            hit = {k: st["hit_" + k] for k in HIT_KEYS}
+        else:
+            hit = _scene_intersect_tris(kg, st["o"], st["d"], st["tmin"],
+                                        st["tmax"],
+                                        vis_of_flag(st["path_flag"]))
         found = hit["prim"] >= 0
         L = st["L"]
         throughput = st["throughput"]
@@ -560,7 +625,11 @@ def make_path_kernel(kg, px, py, pixel_index):
                                to_l / dist2[:, None])
             sh_tmax = torch.where(distant, um.RAY_TMAX,
                                   dist2 * (1.0 - 1e-3) - RAY_EPS)
-            if use_dual_shadow:
+            if fused:
+                # deferred to finish: the shadow ray shares the next ray's
+                # union walk, and the contribution is added there
+                blocked = None
+            elif use_dual_shadow:
                 in_vol_sh = st["vol_shader"] >= 0
                 bhit_sh, blocked = dual_sweep(sh_o, sh_d, can_light,
                                               can_light & in_vol_sh, sh_tmax)
@@ -585,7 +654,9 @@ def make_path_kernel(kg, px, py, pixel_index):
                 contrib = torch.where((scattered & mis_lane)[:, None],
                                       contrib * w_t_d[:, None], contrib)
                 can_light = can_light & ~(scattered & replaced)
-            L = torch.where((can_light & ~blocked)[:, None], L + contrib, L)
+            if not fused:
+                L = torch.where((can_light & ~blocked)[:, None], L + contrib,
+                                L)
 
         # ---- BSDF bounce (phase function at scatter points) ----
         bs = bsdf_ops.bsdf_sample(closures, sd.N, sd.Ng, sd.I, bu, bv,
@@ -736,9 +807,171 @@ def make_path_kernel(kg, px, py, pixel_index):
             out["sss_albedo"] = torch.where(
                 entry[:, None], torch.where(is_burley[:, None], alpha_w, 1.0),
                 st["sss_albedo"])
+        if fused:
+            # has_lights holds in fused mode; sh_tmax -1 (an empty window)
+            # where there is nothing to test
+            return out, {"sh_o": sh_o, "sh_d": sh_d,
+                         "sh_tmax": torch.where(can_light, sh_tmax, -1.0),
+                         "can_light": can_light, "contrib": contrib}
         return out
 
-    return start_paths, step
+    if not fused:
+        return start_paths, step
+
+    def seed(st):
+        """The camera rays' closest hits (the any-hit ray disabled)."""
+        vis0 = vis_of_flag(st["path_flag"])
+        empty = torch.full((n,), -1.0, device=dev)
+        hit, _blocked = _dual_walk(
+            kg, st["o"], st["d"], st["tmin"],
+            torch.where(st["alive"], st["tmax"], empty), vis0,
+            st["o"], st["d"], empty, vis0)
+        st = dict(st)
+        for k in HIT_KEYS:
+            st["hit_" + k] = hit[k]
+        return st
+
+    def finish(out, pend, regen_mask=None, regen_st=None):
+        """One union walk: the deferred NEE shadow test of this bounce and
+        the closest hit of the next ray; then the NEE contribution. Under
+        regen_mask a finished lane's next ray is its new sample's camera
+        ray (regen_st), so it shares this walk; the contribution still
+        lands in the finished sample's L.
+
+        A regenerated lane's ray is traced inside its new sample's own
+        window, [regen_st tmin, min(regen_st tmax, RAY_TMAX)], which is
+        what seed and the unfused loops give the same camera ray. The
+        JAX package passes 1e-5 and the finished path's tmax there, which
+        lets a regenerated sample see past the camera's far clip (or miss
+        what lies nearer than 1e-5) where its fixed-grid render does
+        not."""
+        o_c, d_c = out["o"], out["d"]
+        vis_c = vis_of_flag(out["path_flag"])
+        alive_c = out["alive"]
+        tmin_c = torch.full((n,), 1e-5, device=dev)
+        tmax_c = torch.clamp(out["tmax"], max=um.RAY_TMAX)
+        if regen_mask is not None:
+            o_c = torch.where(regen_mask[:, None], regen_st["o"], o_c)
+            d_c = torch.where(regen_mask[:, None], regen_st["d"], d_c)
+            vis_c = torch.where(regen_mask,
+                                vis_of_flag(regen_st["path_flag"]), vis_c)
+            alive_c = alive_c | regen_mask
+            tmin_c = torch.where(regen_mask, regen_st["tmin"], tmin_c)
+            tmax_c = torch.where(
+                regen_mask, torch.clamp(regen_st["tmax"], max=um.RAY_TMAX),
+                tmax_c)
+        tmax_c = torch.where(alive_c, tmax_c, -1.0)
+        hit, blocked = _dual_walk(
+            kg, o_c, d_c, tmin_c, tmax_c, vis_c, pend["sh_o"], pend["sh_d"],
+            pend["sh_tmax"], i32(ob.PATH_RAY_SHADOW))
+        out = dict(out)
+        out["L"] = torch.where((pend["can_light"] & ~blocked)[:, None],
+                               out["L"] + pend["contrib"], out["L"])
+        for k in HIT_KEYS:
+            out["hit_" + k] = hit[k]
+        return out
+
+    return start_paths, step, seed, finish
+
+
+def _trace_sample(kern, n, max_bounce, sample, dev):
+    """One sample of every lane on the fixed grid: max_bounce + 1 steps."""
+    samples = torch.full((n,), int(sample), dtype=torch.int64, device=dev)
+    if len(kern) == 4:
+        # fused NEE: the camera hit from seed, then one union walk a bounce
+        start_paths, step, seed, finish = kern
+        st = seed(start_paths(samples))
+        for _ in range(max_bounce + 1):
+            st = finish(*step(st))
+    else:
+        start_paths, step = kern
+        st = start_paths(samples)
+        for _ in range(max_bounce + 1):
+            st = step(st)
+    return st["L"], st["alpha"]
+
+
+def path_trace_sample(kg, px, py, pixel_index, sample):
+    """Trace one sample for a wavefront of pixels on the fixed-depth grid.
+    Returns (radiance (N, 3), alpha (N,), aux dict); the aux dict is empty
+    (aux passes are not ported)."""
+    kern = make_path_kernel(kg, px, py, pixel_index)
+    L, alpha = _trace_sample(kern, px.shape[0],
+                             int(kg["kint"]["max_bounce"]), sample, px.device)
+    return L, alpha, {}
+
+
+def render_samples(kg, px, py, pixel_index, sample_start, num_samples):
+    """Accumulate `num_samples` consecutive samples on the fixed grid.
+    Returns (radiance sum (N, 3), alpha sum (N,))."""
+    kern = make_path_kernel(kg, px, py, pixel_index)
+    max_bounce = int(kg["kint"]["max_bounce"])
+    L, A = _trace_sample(kern, px.shape[0], max_bounce, sample_start,
+                         px.device)
+    for i in range(1, num_samples):
+        rad, alpha = _trace_sample(kern, px.shape[0], max_bounce,
+                                   int(sample_start) + i, px.device)
+        L, A = L + rad, A + alpha
+    return L, A
+
+
+def _regen_loop(kg, px, py, pixel_index, s0, per_lane, stride, even=False):
+    """The regenerating wavefront: every lane renders `per_lane` samples
+    of its pixel, s0, s0 + stride, ..., starting the next one as soon as
+    the path of the last one has ended. Returns the per-lane sums
+    (L (N, 3), A (N,), E): E sums the samples of even index when `even`,
+    else it is None.
+
+    Unfused, a dead lane is merged and regenerated before the step. In
+    fused-NEE mode that happens after the shading half of the bounce, so
+    the dying lane's deferred shadow ray and its new sample's camera ray
+    share one union walk; the bounce's NEE contribution stays the last
+    addition to L of its bounce, which keeps the sums equal to the fixed
+    grid's to the bit in either mode."""
+    kern = make_path_kernel(kg, px, py, pixel_index)
+    fused = len(kern) == 4
+    start_paths, step = kern[:2]
+    n, dev = px.shape[0], px.device
+    st = start_paths(s0)
+    if fused:
+        seed, finish = kern[2:]
+        st = seed(st)
+    L_acc = torch.zeros((n, 3), device=dev)
+    A_acc = torch.zeros(n, device=dev)
+    E_acc = torch.zeros((n, 3), device=dev) if even else None
+    done = torch.zeros(n, dtype=torch.int32, device=dev)
+    fresh = torch.ones(n, dtype=torch.bool, device=dev)
+    while bool((st["alive"] | fresh | (done < per_lane)).any()):
+        if fused:
+            out, pend = step(st)
+            merge = ~out["alive"] & fresh
+            regen = merge & (done + 1 < per_lane)
+            new_st = start_paths(torch.where(regen, out["sample"] + stride,
+                                             out["sample"]))
+            ended = finish(out, pend, regen, new_st)
+        else:
+            ended = st
+            merge = ~st["alive"] & fresh
+        L_acc = L_acc + torch.where(merge[:, None], ended["L"], 0.0)
+        A_acc = A_acc + torch.where(merge, ended["alpha"], 0.0)
+        if even:
+            is_even = merge & (ended["sample"] % 2 == 0)
+            E_acc = E_acc + torch.where(is_even[:, None], ended["L"], 0.0)
+        done = done + merge.to(torch.int32)
+        fresh = fresh & ~merge
+        if fused:
+            st = {k: _sel(regen, new_st[k], ended[k]) for k in new_st}
+            for k in HIT_KEYS:
+                st["hit_" + k] = ended["hit_" + k]
+            fresh = fresh | regen
+        else:
+            regen = ~st["alive"] & ~fresh & (done < per_lane)
+            new_st = start_paths(torch.where(regen, st["sample"] + stride,
+                                             st["sample"]))
+            st = {k: _sel(regen, new_st[k], st[k]) for k in st}
+            fresh = fresh | regen
+            st = step(st)
+    return L_acc, A_acc, E_acc
 
 
 def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
@@ -746,42 +979,37 @@ def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
     """Path-regeneration renderer: a dead lane immediately starts its
     pixel's next sample, so the wavefront stays full. Returns (radiance
     sum (npix, 3), alpha sum (npix,)) over `num_samples` samples starting
-    at `sample_start`.
+    at `sample_start`, equal to render_samples' to the bit.
 
     lanes_per_pixel=K > 1 runs K samples of each pixel at once (lane k
     covers samples start+k, start+k+K, ...); callers pass px, py and
     pixel_index tiled K times."""
     K = int(lanes_per_pixel)
     assert num_samples % K == 0, "lanes_per_pixel must divide num_samples"
-    per_lane = num_samples // K
-    start_paths, step = make_path_kernel(kg, px, py, pixel_index)
     n = px.shape[0]
     assert n % K == 0
     npix = n // K
-    dev = px.device
-    s0 = int(sample_start) + torch.arange(K, device=dev).repeat_interleave(
-        npix)
-    st = start_paths(s0)
-    L_acc = torch.zeros((n, 3), device=dev)
-    A_acc = torch.zeros(n, device=dev)
-    done = torch.zeros(n, dtype=torch.int32, device=dev)
-    fresh = torch.ones(n, dtype=torch.bool, device=dev)
-    while bool((st["alive"] | fresh | (done < per_lane)).any()):
-        dead = ~st["alive"]
-        merge = dead & fresh
-        L_acc = L_acc + torch.where(merge[:, None], st["L"], 0.0)
-        A_acc = A_acc + torch.where(merge, st["alpha"], 0.0)
-        done = done + merge.to(torch.int32)
-        fresh = fresh & ~merge
-        regen = dead & ~fresh & (done < per_lane)
-        new_st = start_paths(torch.where(regen, st["sample"] + K,
-                                         st["sample"]))
-        st = {k: _sel(regen, new_st[k], st[k]) for k in st}
-        fresh = fresh | regen
-        st = step(st)
+    s0 = int(sample_start) + torch.arange(
+        K, device=px.device).repeat_interleave(npix)
+    L_acc, A_acc, _E = _regen_loop(kg, px, py, pixel_index, s0,
+                                   num_samples // K, K)
     if K == 1:
         return L_acc, A_acc
     return (L_acc.reshape(K, npix, 3).sum(0), A_acc.reshape(K, npix).sum(0))
+
+
+def render_samples_adaptive_chunk(kg, px, py, pixel_index, sample_start,
+                                  num_samples):
+    """One chunk of the adaptive sampler: which pixel a lane renders and
+    at which sample it starts are data (`sample_start` is a per-lane
+    tensor), so converged pixels' lanes can be handed to pixels that are
+    still active. Each lane renders `num_samples` consecutive samples of
+    its pixel. Returns per-lane (L sum, A sum, L sum over the samples of
+    even index): the caller adds lanes into the framebuffer by pixel id,
+    and the even-sample sum feeds the half-buffer error estimate."""
+    return _regen_loop(kg, px, py, pixel_index,
+                       torch.as_tensor(sample_start, device=px.device).long(),
+                       int(num_samples), 1, even=True)
 
 
 def _sel(mask, a, b):

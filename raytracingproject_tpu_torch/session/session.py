@@ -3,8 +3,10 @@ Session._run :348, for one full-frame tile).
 
 `render` compiles the scene (unless KernelGlobals are given), loops
 sample chunks over ops/integrator.py render_samples_regen and returns
-the (H, W, 3) float32 image averaged over the samples. Tiles, pause,
-adaptive sampling and multi-device rendering are not in this slice.
+the (H, W, 3) float32 image averaged over the samples. The adaptive
+sampler is a loop of its own (session/adaptive.py
+render_adaptive_device); `render` has no adaptive branch. Tiles, pause
+and multi-device rendering are not ported.
 """
 
 from __future__ import annotations

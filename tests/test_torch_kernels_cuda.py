@@ -7,7 +7,10 @@ K5 (ops/cluster2_walk.py, closest and any hit, instance rows) through the
 big_instanced two-level tables, K6 (ops/onehot2_walk.py) through the same
 tables, and K1 (ops/dense_sweep.py: closest, any hit, the dual form and
 the Moeller-Trumbore mode) through the dense arrays of cornell_diffuse
-(36 prims) and volume_sss (1,008 prims). K3's
+(36 prims) and volume_sss (1,008 prims), and K7 (ops/dual_walk.py: a
+closest-hit ray with mixed per-lane visibility paired with an any-hit ray
+toward the lamp, and each ray switched off by an empty window) through the
+glossy tables. K3's
 dual form runs on a seeded random volume-boundary table (the glossy
 scene's own is all zeros), so both of its minima are exercised. Kernel
 and plain version share one operation order and the kernels build with
@@ -30,6 +33,7 @@ from raytracingproject_tpu_torch.ops import cluster2_walk as k5
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk as k2
 from raytracingproject_tpu_torch.ops import dense_sweep as k1
+from raytracingproject_tpu_torch.ops import dual_walk as k7
 from raytracingproject_tpu_torch.ops import intersect as isect
 from raytracingproject_tpu_torch.ops import occlusion_walk as k3
 from raytracingproject_tpu_torch.ops import onehot2_walk as k6
@@ -111,6 +115,54 @@ def _check_walk(module, fn, kg, any_hit, seed, tie_frac=1e-4):
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_cluster_walk_kernel(kg, any_hit):
     _check_walk(k2, k2.intersect_clusters_walk, kg, any_hit, 1)
+
+
+@pytest.mark.parametrize("disabled", [None, "any", "closest"])
+def test_dual_walk_kernel(kg, disabled):
+    """K7 against its plain version: blocked equal everywhere, the closest
+    hit equal except where two triangles tie in t (the union's visit order
+    picks another of them)."""
+    ds = kg["dscene"]
+    o, d, _tmax_any, _ = _rays(8)
+    r = np.random.default_rng(9)
+    o_a = o + 0.05
+    to_l = torch.tensor([278.0, 548.0, 279.0], device="cuda") - o_a
+    dist = to_l.norm(dim=-1)
+    d_a = (to_l / dist[:, None]).contiguous()
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    empty = torch.full((N,), -1.0, device="cuda")
+    tmax_c = empty if disabled == "closest" \
+        else torch.full((N,), 1e30, device="cuda")
+    tmax_a = empty if disabled == "any" else dist * 0.999
+    vis_c = torch.tensor(np.array([1, 8, 16], np.int32)[r.integers(0, 3, N)],
+                         device="cuda")
+    vis_a = torch.full((N,), 128, dtype=torch.int32, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"],
+            o, d, tmin, tmax_c, vis_c, o_a, d_a, tmin, tmax_a, vis_a)
+    before = k7.launches
+    got, blk = k7.intersect_clusters_dual_walk(*args)
+    ref, rblk = ci.intersect_clusters_dual(*args)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1
+    assert torch.equal(blk, rblk)
+    assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
+    if disabled == "any":
+        assert not blk.any()
+    else:
+        assert 0.05 < blk.float().mean().item() < 0.95
+    if disabled == "closest":
+        assert (got["prim"] == -1).all() and torch.equal(got["t"], empty)
+        return
+    assert (ref["prim"] >= 0).float().mean().item() > 0.05
+    same = (got["prim"] == ref["prim"]) & (got["object"] == ref["object"])
+    assert (~same).float().mean().item() <= 1e-4
+    torch.testing.assert_close(got["t"][~same], ref["t"][~same], rtol=1e-6,
+                               atol=1e-4)
+    torch.testing.assert_close(got["t"][same], ref["t"][same], rtol=1e-5,
+                               atol=0)
+    for k in ("u", "v"):
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=0,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("scene", ["glossy", "volume_sss"])

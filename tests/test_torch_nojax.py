@@ -5,8 +5,10 @@ imports, and the glossy scene, the volume_sss scene (with its pinned
 dispatch) and the big_instanced scene compile and render 8x8, 2-spp
 images on the CPU, and so do the dense path's cornell_diffuse scene,
 volume_sss under the host compile's own dense dispatch and big_instanced
-with pallas_onehot2, each through the CLI's scene loader. The sources
-import neither jax nor anything of the JAX package."""
+with pallas_onehot2 and the glossy scene in fused-NEE mode, each through
+the CLI's scene loader; the fused kernel globals also take one round of
+the adaptive loop. The sources import neither jax nor anything of the
+JAX package."""
 
 import os
 import re
@@ -53,7 +55,7 @@ assert bimg.shape == (8, 8, 3) and np.isfinite(bimg).all() and bimg.mean() > 0
 from raytracingproject_tpu_torch.app import cli
 means = []
 for spec in ("example:cornell", "example:volume_sss:dense",
-             "example:big_instanced:onehot2"):
+             "example:big_instanced:onehot2", "example:cornell:glossy:fused"):
     sc, flags = cli.load_scene(spec)
     sc.camera.set("width", 8)
     sc.camera.set("height", 8)
@@ -63,6 +65,13 @@ for spec in ("example:cornell", "example:volume_sss:dense",
     im = render(sc, samples=2, chunk=2, device="cpu", kg=kg)
     assert im.shape == (8, 8, 3) and np.isfinite(im).all() and im.mean() > 0
     means.append(float(im.mean()))
+from raytracingproject_tpu_torch.ops import integrator as integ
+from raytracingproject_tpu_torch.session.adaptive import render_adaptive_device
+assert integ._use_fused_nee(kg)
+L, A, counts, st = render_adaptive_device(kg, 8, 8, 4, threshold=0.0, chunk=2,
+                                          max_rounds=1)
+assert (counts == 2).all() and np.isfinite(L).all() and L.mean() > 0
+assert st["dispatches"] == 1 and not st["converged"]
 assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
 print("NOJAX_OK", float(img.mean()), float(vimg.mean()), float(bimg.mean()),
       *means)
