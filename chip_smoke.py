@@ -27,9 +27,14 @@ glossy_nee_mis (the Cornell box with a GGX sphere; K2 and K3):
    must have been launched by this render. The inputs of the third call
    of each kernel (262,144 lanes; camera, diffuse and glossy visibility
    mixed) are copied as the render runs;
-6. main-path shapes: at 262,144 lanes each kernel is held against its
-   plain version and both are timed, on the inputs copied from the render
-   and on camera rays / NEE-like shadow rays;
+6. main-path shapes: first the counting variants of K2 and K3 run on the
+   inputs copied from the render (outputs equal to the plain launch's;
+   per lane the mean, p50, p99 and max of the cluster rows and boxes each
+   lane tested, per warp the mean of max / mean rows); then at 262,144
+   lanes each kernel is held against its plain version and both are
+   timed, on the inputs copied from the render (K2 and K3 to the bit:
+   t, u, v, prim, object; t_boundary, t_other, blocked) and on camera
+   rays / NEE-like shadow rays;
 
 volume_sss (homogeneous smoke and a random-walk SSS sphere in the Cornell
 box, with the dispatch the configuration pins: K4 and K3's dual form):
@@ -44,9 +49,10 @@ box, with the dispatch the configuration pins: K4 and K3's dual form):
    (example:volume_sss); finite, mean within 1% of the JAX package's mean
    for the same render (JAX_MEAN_VOL_256), K4 and K3 launched by this
    render; the inputs of each kernel's third call are copied;
-10. main-path shapes: at 65,536 lanes K4 (on the copied input and on
-   camera rays) and K3's dual form (on the copied input) are held against
-   their plain versions and both are timed;
+10. main-path shapes: K3's dual form counted on the copied input as in 6;
+   at 65,536 lanes K4 (on the copied input and on camera rays) and K3's
+   dual form (on the copied input, to the bit) are held against their
+   plain versions and both are timed;
 
 big_instanced (64 instances of one image-textured sphere on a checkered
 ground plane, a distant sun and a constant sky; two-level cluster tables:
@@ -135,16 +141,27 @@ called):
 29. main-path shapes: at 262,144 lanes K7 on the copied input is held
    against its plain version and timed; beside it, on the same copied
    rays, K2 (the closest half) and K3 (the any-hit half), which is what
-   the fused call replaces;
+   the fused call replaces, both to the bit;
 30. adaptive loop (session/adaptive.py render_adaptive_device): glossy
    256x256, 32 spp, chunk 4, unfused and fused, once with threshold 0
    (every count equals 32, image mean within 0.5% of the fixed render's at
    that size) and once with threshold 0.02 (converged, fewer samples than
    nominal, mean within 1%); the fused runs launch K7 only, the unfused
-   ones K2 and K3 only.
+   ones K2 and K3 only; the third calls of K2 and K3 in the unfused run
+   with threshold 0.02 are copied and held against the plain versions to
+   the bit.
+
+the JAX package's single-level cap:
+
+31. a table of 640 clusters x 15 random triangles (K2 and K7 take 512,
+   K3 and K4 640) through the integrator's dispatch: the closest hit goes
+   to K4 and the occlusion walk to K3, K2 is not launched; both are held
+   against their plain versions on 65,536 random rays (K3 to the bit) and
+   timed.
 
 Launch counts are set to 0 just before each full-width render and read
-just after it; the launches of the comparisons do not count. Each
+just after it; the launches of the comparisons do not count. A kernel's
+time is the median of three timings, each the median of 20 runs. Each
 kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
@@ -235,6 +252,9 @@ MT_OPS = 56
 # run that stops pixels early
 ADAPTIVE_SIZE, ADAPTIVE_SPP, ADAPTIVE_CHUNK = 256, 32, 4
 ADAPTIVE_THRESHOLD = 0.02
+# the JAX package's single-level cap: the largest table K3 and K4 take
+# (K2 and K7 take 512)
+CAP_CLUSTERS = 640
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -386,6 +406,89 @@ def compare_occlusion(name, ref, got, need_boundary=False):
         f"{nb:.4f}, t_other found {float((ro < 1e29).float().mean()):.4f}, "
         f"max |dt| {err:.3e}")
     return err
+
+
+def exactly(compare):
+    """`compare`, then every output equal to the plain version's to the
+    bit (K2's t, u, v, prim, object; K3's t_boundary, t_other,
+    blocked)."""
+    def held(name, ref, got):
+        err = compare(name, ref, got)
+        keys = ref.keys() if isinstance(ref, dict) else range(len(ref))
+        for k in keys:
+            assert torch.equal(ref[k], got[k]), \
+                f"{name}: output {k} differs from the plain version's"
+        log(f"[kernels] {name}: every output equal to the plain version's "
+            "to the bit")
+        return err
+    return held
+
+
+def count_stats(cnt):
+    """Per lane mean, p50, p99 and max of the rows and the boxes a walk
+    tested (the first two columns of its int32 counts), per warp (32
+    consecutive lanes) the mean of max / mean rows over the warps whose
+    lanes test any row, and for K3 (a third column: the rows the lane's
+    warp staged) the staged rows per warp and the lanes that test a
+    staged row."""
+    c = cnt.to(torch.float64)
+    out = {}
+    for j, key in enumerate(("rows", "boxes")):
+        x = c[:, j]
+        q = torch.quantile(x, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                           device=x.device))
+        out[key] = {"mean": float(x.mean()), "p50": float(q[0]),
+                    "p99": float(q[1]), "max": float(x.max())}
+    n = c.shape[0] // 32 * 32
+    w = c[:n, 0].reshape(-1, 32)
+    m = w.mean(1)
+    busy = m > 0
+    out["warp_max_over_mean_rows"] = float(
+        (w.max(1).values[busy] / m[busy]).mean())
+    out["warps_without_rows"] = float((~busy).to(torch.float64).mean())
+    if c.shape[1] > 2:   # K3: the rows each warp staged
+        staged = c[:n, 2].reshape(-1, 32).max(1).values
+        out["staged_rows_per_warp"] = float(staged.mean())
+        out["lanes_per_staged_row"] = float(w.sum() / staged.sum())
+    return out
+
+
+def count_phase(label, name, rec):
+    """The counting variant of K2 or K3 on a recorded call: its outputs
+    equal the plain launch's; prints and returns count_stats (for K2 also
+    the box tests of the earlier design, a full rescan per visit and one
+    more that found nothing: (rows + 1) x C on a closest-hit call)."""
+    args = _positional(name, rec)
+    kern = wrapper(name)
+    if name == "occlusion_walk":
+        ref = kern(*args)
+        got, cnt = kern(*args, counts=True)
+    else:
+        kw = {"shadow_any_hit": args[8]}
+        ref = kern(*args[:8], **kw)
+        got, cnt = kern(*args[:8], counts=True, **kw)
+    sync()
+    keys = ref.keys() if isinstance(ref, dict) else range(len(ref))
+    assert all(torch.equal(ref[k], got[k]) for k in keys), \
+        f"{label}: the counting variant's outputs differ"
+    st = count_stats(cnt)
+    c = int(args[0].shape[0])
+    extra = ""
+    if name == "cluster_walk" and not args[8]:
+        st["boxes_rescan_design_mean"] = float(
+            (cnt[:, 0].to(torch.float64) + 1.0).mean()) * c
+        extra = (f"; the rescan design's box tests per lane "
+                 f"{st['boxes_rescan_design_mean']:.2f}")
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())
+    log(f"[counts] {label} ({cnt.shape[0]} lanes, C = {c}): rows per lane "
+        f"{fmt(st['rows'])}; boxes per lane {fmt(st['boxes'])}; warp max / "
+        f"mean rows {st['warp_max_over_mean_rows']:.3f} (warps without rows "
+        f"{st['warps_without_rows']:.4f}){extra}")
+    if "staged_rows_per_warp" in st:
+        log(f"[counts] {label}: rows staged per warp "
+            f"{st['staged_rows_per_warp']:.2f}, lanes testing a staged row "
+            f"{st['lanes_per_staged_row']:.3f}")
+    return st
 
 
 def _nbytes(*xs):
@@ -560,9 +663,11 @@ def shadow_rays(kg, o, d, rng):
 
 def timed_cases(cases, n, card, reps=(20, 3)):
     """Each case (kernel call, plain call, kernel name, compare, bound):
-    held against its plain version, then both timed (median ms). Returns
-    ({case: {"ms", "plain_ms", "bound_ms", "bound_by", "lanes"}},
-    {kernel: max |t| error})."""
+    held against its plain version, then both timed: the kernel three
+    times (each the median of reps[0] runs; "ms" is the median of the
+    three), the plain version once. Returns ({case: {"ms", "ms_runs",
+    "plain_ms", "bound_ms", "bound_by", "lanes"}}, {kernel: max |t|
+    error})."""
     times, errs = {}, {}
     for name, (kern, plain, which, compare, bound) in cases.items():
         got, ref = kern(), plain()
@@ -570,12 +675,15 @@ def timed_cases(cases, n, card, reps=(20, 3)):
         errs[which] = max(errs.get(which, 0.0),
                           compare(f"{name} @ {n}", ref, got))
         bound_ms, bound_by = bound(ref)
-        ms, plain_ms = median_ms(kern, reps[0]), median_ms(plain, reps[1])
-        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "lanes": n}
-        log(f"[time] {name} @ {n} lanes: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
-            f"({card})")
+        runs = [median_ms(kern, reps[0]) for _ in range(3)]
+        ms, plain_ms = float(np.median(runs)), median_ms(plain, reps[1])
+        times[name] = {"ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "lanes": n}
+        log(f"[time] {name} @ {n} lanes: kernel {ms:.4f} ms (median of "
+            f"three timings of {reps[0]} runs, {min(runs):.4f}-"
+            f"{max(runs):.4f}), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}) ({card})")
     return times, errs
 
 
@@ -645,7 +753,7 @@ def glossy_main_path_checks(kg, side, rng, card, rec):
     cases = {
         "K2 closest render": _recorded_case("cluster_walk",
                                             rec["cluster_walk"],
-                                            compare_hits),
+                                            exactly(compare_hits)),
         "K2 closest camera": (
             lambda: k2(*cam), lambda: ci.intersect_clusters(*cam),
             "cluster_walk", compare_hits,
@@ -657,7 +765,7 @@ def glossy_main_path_checks(kg, side, rng, card, rec):
             lambda out: walk_bound(shadow, {"shadow_any_hit": True}, out)),
         "K3 surface render": _recorded_case("occlusion_walk",
                                             rec["occlusion_walk"],
-                                            compare_occlusion),
+                                            exactly(compare_occlusion)),
         "K3 surface shadow": (
             lambda: k3(*occ), lambda: ci.occlusion_clusters(*occ),
             "occlusion_walk", compare_occlusion,
@@ -699,7 +807,7 @@ def volume_main_path_checks(kg, side, card, rec):
             lambda out: walk_bound(cam, {}, out)),
         "K3 dual render": _recorded_case(
             "occlusion_walk", rec["occlusion_walk"],
-            lambda *a: compare_occlusion(*a, need_boundary=True)),
+            exactly(lambda *a: compare_occlusion(*a, need_boundary=True))),
     }
     return timed_cases(cases, n, card)
 
@@ -1201,11 +1309,11 @@ def fused_main_path_checks(kg, side, card, rec):
             lambda out: dual_bound(args, out)),
         "K2 closest on K7's render input": (
             lambda: k2(*closest), lambda: ci.intersect_clusters(*closest),
-            "cluster_walk", compare_hits,
+            "cluster_walk", exactly(compare_hits),
             lambda out: walk_bound(closest, {}, out)),
         "K3 surface on K7's render input": (
             lambda: k3(*occ), lambda: ci.occlusion_clusters(*occ),
-            "occlusion_walk", compare_occlusion,
+            "occlusion_walk", exactly(compare_occlusion),
             lambda out: occlusion_bound(occ, out)),
     }
     return timed_cases(cases, n, card)
@@ -1226,17 +1334,23 @@ def adaptive_checks(dev, card):
     fixed = float(render(scene, spp, chunk=16, device=dev,
                          kg=scene.make_kernel_globals(dev))
                   .astype(np.float64).mean())
+    recorded = None
     for fused in (False, True):
         kg = scene.make_kernel_globals(dev)
         if fused:
             kg.update(examples.GLOSSY_FUSED)
         for thr in (0.0, ADAPTIVE_THRESHOLD):
-            reset_launches()
-            t0 = time.perf_counter()
-            L, _A, counts, st = render_adaptive_device(
-                kg, size, size, spp, threshold=thr, chunk=chunk)
-            sync()
-            dt = time.perf_counter() - t0
+            names = (("dual_walk",) if fused
+                     else ("cluster_walk", "occlusion_walk"))
+            with record_calls(names, RECORD_CALL) as rec:
+                reset_launches()
+                t0 = time.perf_counter()
+                L, _A, counts, st = render_adaptive_device(
+                    kg, size, size, spp, threshold=thr, chunk=chunk)
+                sync()
+                dt = time.perf_counter() - t0
+            if not fused and thr > 0.0:
+                recorded = rec
             ran = {k: launches_of(k) for k in ("dual_walk", "cluster_walk",
                                                "occlusion_walk")}
             mean = float((L.astype(np.float64) / counts[:, None]).mean())
@@ -1262,6 +1376,95 @@ def adaptive_checks(dev, card):
             else:
                 assert st["samples_rendered"] < st["samples_nominal"]
                 assert rel <= 0.01
+    # the unfused stopping run's recorded K2 and K3 calls, held to the bit
+    errs = {}
+    for name, compare in (("cluster_walk", exactly(compare_hits)),
+                          ("occlusion_walk", exactly(compare_occlusion))):
+        assert "args" in recorded[name], f"adaptive: no {name} call recorded"
+        kern, plain, _which, held, _bound = _recorded_case(
+            name, recorded[name], compare)
+        got, ref = kern(), plain()
+        sync()
+        errs[name] = held(f"{name} adaptive render @ "
+                          f"{_positional(name, recorded[name])[4].shape[0]}",
+                          ref, got)
+    return errs
+
+
+def grid_tables(c, ct, rng, dev):
+    """A single-level table of c clusters of ct random triangles: cluster
+    k's triangles lie in a cube of side 20 on a grid of pitch 30, its
+    boundary flags are random. Returns (cbounds, ctable, cboundary)."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    side = int(np.ceil(c ** (1.0 / 3.0)))
+    cells = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)[:c] * 30.0
+    verts = (cells[:, None, None, :]
+             + rng.uniform(0.0, 20.0, (c, ct, 3, 3))).astype(np.float32)
+    clusters = [{"verts": verts[k], "prim": np.arange(k * ct, (k + 1) * ct),
+                 "obj": np.full(ct, k % 7, np.int32),
+                 "vis": np.full(ct, 255, np.int32),
+                 "lo": verts[k].reshape(-1, 3).min(0),
+                 "hi": verts[k].reshape(-1, 3).max(0)} for k in range(c)]
+    cb, ctab, _ = ci.pack_cluster_table(clusters)
+    cbd = (rng.uniform(size=(c, ct)) < 0.3).astype(np.float32)
+    return (torch.tensor(cb, device=dev), torch.tensor(ctab, device=dev),
+            torch.tensor(cbd, device=dev))
+
+
+def cap_checks(dev, rng, card, n=N_CHECK):
+    """A single-level table at the JAX package's cap (640 clusters of 15
+    random triangles on a 9^3 grid) through the integrator's dispatch: K4
+    answers the closest hit and K3 the occlusion walk (K2 is not
+    launched), each held against its plain version on n random rays from
+    around the grid (K3 to the bit, K4 off exact-t ties) and timed."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    from raytracingproject_tpu_torch.ops import integrator as integ
+    c, ct = CAP_CLUSTERS, 15
+    cb, ctab, cbd = grid_tables(c, ct, rng, dev)
+    kg = {"dscene": {"cluster_bounds": cb, "cluster_table": ctab,
+                     "cluster_boundary": cbd},
+          "cluster_tris": ct, "use_brute": False}
+    assert integ._closest_walk_name(kg) == "tile_walk"
+    assert integ._use_occlusion_walk(kg)
+    span = 30.0 * 9
+    o, d = random_rays(n, rng, dev, (-0.25 * span,) * 3, (1.25 * span,) * 3)
+    tmin = torch.full((n,), 1e-4, device=dev)
+    tmaxc = torch.tensor(rng.uniform(10, 2 * span, n).astype(np.float32),
+                         device=dev)
+    tmaxa = torch.tensor(np.where(rng.uniform(size=n) < 0.5,
+                                  rng.uniform(10, span, n), 1e30)
+                         .astype(np.float32), device=dev)
+    vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
+    reset_launches()
+    hit = integ._scene_intersect_tris(kg, o, d, tmin, tmaxc, vis)
+    occ = integ._occlusion(kg, o, d, tmin, tmaxc, tmaxa)
+    sync()
+    ran = {k: launches_of(k) for k in ("cluster_walk", "tile_walk",
+                                       "occlusion_walk")}
+    log(f"[cap] {c} clusters x {ct} triangles through the dispatch: "
+        f"launches {ran}")
+    assert ran == {"cluster_walk": 0, "tile_walk": 1, "occlusion_walk": 1}
+    walk = (cb, ctab, ct, o, d, tmin, tmaxc, vis)
+    oargs = (cb, ctab, cbd, ct, o, d, tmin, tmaxc, tmaxa, 1, 128)
+    errs = {"tile_walk": compare_hits(f"tile_walk closest @ {c} clusters",
+                                      ci.intersect_clusters(*walk), hit),
+            "occlusion_walk": exactly(compare_occlusion)(
+                f"occlusion_walk dual @ {c} clusters",
+                ci.occlusion_clusters(*oargs), occ)}
+    k3, k4 = wrapper("occlusion_walk"), wrapper("tile_walk")
+    cases = {
+        "K4 closest at the cap": (
+            lambda: k4(*walk), lambda: ci.intersect_clusters(*walk),
+            "tile_walk", compare_hits, lambda out: walk_bound(walk, {}, out)),
+        "K3 dual at the cap": (
+            lambda: k3(*oargs), lambda: ci.occlusion_clusters(*oargs),
+            "occlusion_walk", exactly(compare_occlusion),
+            lambda out: occlusion_bound(oargs, out)),
+    }
+    times, e = timed_cases(cases, n, card)
+    merge(errs, e)
+    return times, errs
 
 
 def merge(errs, new):
@@ -1314,6 +1517,13 @@ def main():
     g_launch, g_rec, g_st = full_width(
         card, "example:cornell:glossy", 512, 64, JAX_MEAN_512, 0.005,
         ("cluster_walk", "occlusion_walk"))
+    counts = {
+        "cluster_walk": {"glossy render": count_phase(
+            "K2 closest, glossy render", "cluster_walk",
+            g_rec["cluster_walk"])},
+        "occlusion_walk": {"glossy render": count_phase(
+            "K3 surface, glossy render", "occlusion_walk",
+            g_rec["occlusion_walk"])}}
     g_times, e = glossy_main_path_checks(kg, 512, rng, card, g_rec)
     merge(errs, e)
 
@@ -1331,6 +1541,9 @@ def main():
     v_launch, v_rec, v_st = full_width(
         card, "example:volume_sss", 256, 32, JAX_MEAN_VOL_256, 0.01,
         ("tile_walk", "occlusion_walk"))
+    counts["occlusion_walk"]["volume_sss render"] = count_phase(
+        "K3 dual, volume_sss render", "occlusion_walk",
+        v_rec["occlusion_walk"])
     v_times, e = volume_main_path_checks(vkg, 256, card, v_rec)
     merge(errs, e)
 
@@ -1414,7 +1627,11 @@ def main():
     merge(errs, e)
 
     # ---- 30. the adaptive loop ----
-    adaptive_checks(dev, card)
+    merge(errs, adaptive_checks(dev, card))
+
+    # ---- 31. a single-level table at the cap ----
+    cap_times, e = cap_checks(dev, rng, card)
+    merge(errs, e)
 
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),
@@ -1429,7 +1646,7 @@ def main():
         f"{path} {st['msamples_per_s']:.4f}"
         for path, (_l, st) in paths.items()) + f" ({card})")
     times = {**g_times, **v_times, **b_times, **c_times, **d_times,
-             **o_times, **f_times}
+             **o_times, **f_times, **cap_times}
     # kernel, source, the TPU kernel's pallas_call, its timed case, the
     # prefix of its other cases
     k1 = ("dense_sweep", "pallas_intersect.py:156")
@@ -1465,6 +1682,8 @@ def main():
             "library_ms": None, "timed_case": case, "lanes": tm["lanes"],
             "cases": {c: t for c, t in times.items()
                       if c.startswith(prefix)}})
+        if name in counts:
+            kern[-1]["counts"] = counts[name]
     # K1's fourth mode computes the TPU kernel's own Moeller-Trumbore
     # contract, which no render of either package calls: its checks and
     # times ride on the closest mode's entry

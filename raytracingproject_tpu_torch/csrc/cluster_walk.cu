@@ -1,37 +1,62 @@
 // K2: per-lane front-to-back cluster walk, closest hit or any hit.
 //
-// Replaces the TPU kernel raytracingproject_tpu/ops/pallas_onehot.py
-// intersect_clusters_onehot / _onehot_kernel. Same contract as the plain
-// walk ops/cluster_intersect.py intersect_clusters (static, single-level
-// cluster tables; no instance or motion rows).
+// Replaces the TPU kernel raytracingproject_tpu/ops/pallas_onehot.py:969
+// intersect_clusters_onehot / _onehot_kernel (:145). Same contract as the
+// plain walk ops/cluster_intersect.py intersect_clusters (static,
+// single-level cluster tables, C <= 512; no instance or motion rows).
 //
-// What bounds it on the H100: per-lane latency, not bytes. Each visit
-// rescans all C <= 512 cluster boxes (about 20 flops each) and then reads
-// one 193-float row; the glossy table is 138 KB and stays in L2, so the
-// rows cost L2 latency, not HBM bandwidth. Lanes diverge in visit counts
-// (mean ~3.5 camera, ~7.5 bounce on the TPU's measurement of this scene).
+// What bounds it on the H100: per-lane latency, not bytes. A lane's visits
+// are serial, and each reads one 193-float row (at 15 triangles) that
+// depends on the visit before; the glossy table is 138 KB and stays in L2,
+// so the rows cost L2 latency, not HBM bandwidth. Lanes diverge in visit
+// counts (camera rays fewer than bounce rays).
 //
-// Design: one thread per ray, 128-thread blocks. The cluster bounds
-// (C * 6 floats, <= 12 KB) sit in shared memory; rows are read from global
-// memory through the read-only path. The TPU kernel keeps a (C, lanes)
-// entry table in VMEM and does a min-reduction per visit; 512 floats per
-// lane do not fit in registers or shared memory here, so a lane instead
-// rescans the boxes on each visit and picks the smallest packed key
-// (f32_bits(entry) & ~0x1FF) | cluster_id greater than the last key it
-// visited. Keys are unique (the id breaks ties), increase strictly along
-// the walk, and order like the entries (9 truncated mantissa bits only
-// coarsen the order; hit selection compares exact t). A cluster whose
-// truncated entry is >= the best t is retired, exactly the TPU kernel's
-// cull. The one-hot MXU row fetch and its bf16x3 split are not carried
-// over: rows are read as f32 directly.
+// Visit order: a lane visits its clusters by the packed key
+// (f32_bits(entry) & ~0x1FF) | cluster_id, smallest first. Keys are unique
+// (the id breaks ties), increase strictly along the walk, and order like
+// the entries (9 truncated mantissa bits only coarsen the order; hit
+// selection compares exact t). A cluster whose truncated entry is >= the
+// best t is retired, exactly the TPU kernel's cull. The TPU kernel keeps a
+// (C, lanes) entry table in VMEM and takes a min per visit; 512 floats a
+// lane fit neither registers nor shared memory here.
 //
-// Entries are >= tmin; callers pass tmin >= 0 (a negative entry would sort
-// after every positive one, which stays correct but loses early culling).
+// Design: one thread per ray, 128-thread blocks, the cluster bounds
+// (C * 6 floats, <= 12 KB) in shared memory, rows read from global memory
+// through the read-only path. A lane makes one pass over the C boxes and
+// keeps, sorted in registers, the K2_QUEUE smallest live keys above the
+// last one it visited (a fully unrolled insertion network over fixed
+// registers: no array indexed at run time, so nothing goes to local
+// memory), and notes whether a live key fell off the end. It then pops
+// the keys in order and tests each popped cluster's row. A popped key
+// whose truncated entry has reached the (shrinking) best t is retired
+// there; since keys only grow, every later key of non-negative entry is
+// retired with it. When the queue runs dry and a key fell off, the lane
+// makes another pass from its last key. The clusters visited are the ones
+// the earlier design visited (a full box rescan per visit), key for key,
+// so t, u, v, prim and object are the same to the bit; box tests fall
+// from (visits + 1) x C to C x passes, about C x ceil(visits / queue).
+//
+// The counting variant (COUNT) also writes per lane the rows it tested and
+// the boxes it tested, into counts[2 * lane].
+//
+// Entries are >= tmin; callers pass tmin >= 0. A negative entry (tmin < 0)
+// sorts after every non-negative one, as in the earlier design; it stays
+// exact, and such keys are never retired by a non-negative key's cull.
+//
+// Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 72 registers, no
+// spills, in both variants; chip_smoke.py prints the build log.
 #include "watertight.cuh"
 
 #define ID_BITS 9
 #define ID_MASK ((1u << ID_BITS) - 1u)
+#define NEG_KEY 0x80000000u  // sign bit of the entry: a negative entry
+#define NO_KEY 0xFFFFFFFFu   // an empty queue slot (no key reaches it)
 
+// Queue length: the counts (PERF.md) give p99 4 visits a lane on glossy's
+// render input, so one pass serves nearly every lane.
+#define K2_QUEUE 8
+
+template <int Q, bool COUNT>
 __global__ void cluster_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ o,
@@ -39,7 +64,7 @@ __global__ void cluster_walk_kernel(
     const float* __restrict__ tmax_a, const int* __restrict__ vis_a, int n,
     int any_hit, float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ obj_out) {
+    int* __restrict__ obj_out, int* __restrict__ counts) {
     extern __shared__ float sb[];
     for (int i = threadIdx.x; i < C * 6; i += blockDim.x) sb[i] = cbounds[i];
     __syncthreads();
@@ -55,13 +80,18 @@ __global__ void cluster_walk_kernel(
 
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
     int bp = -1, bo = -1;
+    int rows = 0, passes = 0;
     const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
-              vbase = obase + ct;
+              vbase = pbase + 2 * ct;
     long long last = -1;  // packed key of the last visited cluster
-    for (int visit = 0; visit < C; ++visit) {
+    bool more = true;     // a live key may lie beyond the queue
+    while (more) {
+        // ---- one pass: the Q smallest live keys above last, sorted ----
+        unsigned int q[Q];
+#pragma unroll
+        for (int j = 0; j < Q; ++j) q[j] = NO_KEY;
+        bool fell_pos = false, fell_neg = false;
         const float gate = fminf(bt, RT_INF);
-        unsigned int best = 0xFFFFFFFFu;
-        bool found = false;
         for (int c = 0; c < C; ++c) {
             float e = slab_entry(sb + 6 * c, ox, oy, oz, ix, iy, iz, tmin, tmax);
             if (e >= RT_INF) continue;
@@ -70,34 +100,70 @@ __global__ void cluster_walk_kernel(
                 (__float_as_uint(e) & ~ID_MASK) | (unsigned int)c;
             if ((long long)key <= last) continue;                   // visited
             if (__uint_as_float(key & ~ID_MASK) >= gate) continue;  // culled
-            if (key < best) {
-                best = key;
-                found = true;
+            unsigned int out = key;  // the key that falls off the end
+            if (key < q[Q - 1]) {
+                out = q[Q - 1];
+#pragma unroll
+                for (int j = Q - 1; j > 0; --j)
+                    q[j] = key < q[j - 1] ? q[j - 1]
+                                          : (key < q[j] ? key : q[j]);
+                q[0] = key < q[0] ? key : q[0];
+            }
+            if (out != NO_KEY) {
+                if (out & NEG_KEY)
+                    fell_neg = true;
+                else
+                    fell_pos = true;
             }
         }
-        if (!found) break;
-        last = best;
-        const float* row = ctable + (size_t)(best & ID_MASK) * W;
-        for (int k = 0; k < ct; ++k) {
-            const float pid = __ldg(row + pbase + k);
-            if (!(pid >= 0.0f)) continue;
-            if (((int)__ldg(row + vbase + k) & vis) == 0) continue;
-            float t, u, v;
-            if (wt_tri(w, row + RT_META_COLS + 9 * k, tmin, bt, &t, &u, &v)) {
-                bt = t;
-                bp = (int)pid;
-                bu = u;
-                bv = v;
-                bo = (int)__ldg(row + obase + k);
+        ++passes;
+        // ---- the walk: pop the keys in order ----
+        bool done = false;
+        for (int j = 0; j < Q; ++j) {
+            const unsigned int key = q[0];
+#pragma unroll
+            for (int k = 0; k < Q - 1; ++k) q[k] = q[k + 1];
+            q[Q - 1] = NO_KEY;
+            if (key == NO_KEY) break;
+            if (__uint_as_float(key & ~ID_MASK) >= fminf(bt, RT_INF)) {
+                // retired since the pass; so is every later key of
+                // non-negative entry, including those that fell off
+                if (!(key & NEG_KEY)) fell_pos = false;
+                continue;
+            }
+            last = key;
+            const float* row = ctable + (size_t)(key & ID_MASK) * W;
+            if (COUNT) ++rows;
+            for (int k = 0; k < ct; ++k) {
+                const float pid = __ldg(row + pbase + k);
+                if (!(pid >= 0.0f)) continue;
+                if (((int)__ldg(row + vbase + k) & vis) == 0) continue;
+                float t, u, v;
+                if (wt_tri(w, row + RT_META_COLS + 9 * k, tmin, bt, &t, &u,
+                           &v)) {
+                    bt = t;
+                    bp = (int)pid;
+                    bu = u;
+                    bv = v;
+                    bo = (int)__ldg(row + obase + k);
+                }
+            }
+            if (any_hit && bp >= 0) {
+                done = true;
+                break;
             }
         }
-        if (any_hit && bp >= 0) break;
+        more = !done && (fell_pos || fell_neg);
     }
     t_out[i] = bt;
     prim_out[i] = bp;
     u_out[i] = bu;
     v_out[i] = bv;
     obj_out[i] = bo;
+    if (COUNT) {
+        counts[2 * i] = rows;
+        counts[2 * i + 1] = passes * C;
+    }
 }
 
 extern "C" int rt_cluster_walk(const float* cbounds, const float* ctable,
@@ -105,13 +171,21 @@ extern "C" int rt_cluster_walk(const float* cbounds, const float* ctable,
                                const float* d, const float* tmin,
                                const float* tmax, const int* vis, int n,
                                int any_hit, float* t, int* prim, float* u,
-                               float* v, int* obj, void* stream) {
+                               float* v, int* obj, int* counts,
+                               void* stream) {
     if (n <= 0) return 0;
     const int block = 128;
     const int grid = (n + block - 1) / block;
     const size_t smem = (size_t)C * 6 * sizeof(float);
-    cluster_walk_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
-        u, v, obj);
+    if (counts)
+        cluster_walk_kernel<K2_QUEUE, true>
+            <<<grid, block, smem, (cudaStream_t)stream>>>(
+                cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit,
+                t, prim, u, v, obj, counts);
+    else
+        cluster_walk_kernel<K2_QUEUE, false>
+            <<<grid, block, smem, (cudaStream_t)stream>>>(
+                cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit,
+                t, prim, u, v, obj, counts);
     return (int)cudaGetLastError();
 }

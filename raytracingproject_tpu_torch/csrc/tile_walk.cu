@@ -3,7 +3,8 @@
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_cluster.py
 // intersect_clusters_pallas / _cluster_kernel. Same contract as the plain
 // walk ops/cluster_intersect.py intersect_clusters (static, single-level
-// cluster tables with C <= 512; no instance or motion rows).
+// cluster tables with C <= 640, the JAX package's single-level cap; no
+// instance or motion rows).
 //
 // What the TPU kernel does: a tile of 1,024 rays keeps a (C, tile) table
 // of entry distances in VMEM; each step it takes the cluster whose masked
@@ -18,8 +19,8 @@
 //     bank-conflict free. It is filled once from the cluster bounds.
 //     Sizing the tile by C keeps it in shared memory: C * 32 * 4 bytes
 //     is 11.9 KB at C = 93 (volume_sss), 22.9 KB at C = 179 (glossy) and
-//     64 KB at C = 512; the host picks 4 warps per block where that fits
-//     in the 227 KB a block can have, fewer for large C.
+//     80 KB at C = 640; the host picks 4 warps per block where that fits
+//     in the 227 KB a block can have, fewer for large C (2 at C = 640).
 //   - Pick: each lane scans its column for its smallest masked entry
 //     (first cluster on ties), then five butterfly shuffles take the
 //     lexicographic minimum (entry, cluster) over the warp -- the TPU

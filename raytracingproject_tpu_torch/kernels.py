@@ -40,12 +40,14 @@ _WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
          _P, _P, _P, _P, _P, _P]
 # source -> {C entry point: argtypes}
 SIGNATURES = {
-    "cluster_walk.cu": {"rt_cluster_walk": _WALK},
+    # K2 takes the closest-hit walks' arguments and, before the stream,
+    # counts: (N, 2) int32 or null (the counting variant runs when given)
+    "cluster_walk.cu": {"rt_cluster_walk": _WALK[:-1] + [_P, _P]},
     # cbounds ctable cboundary C W ct o d tmin tmaxc tmaxa n vis_c vis_a
-    # tb to blocked stream
+    # tb to blocked counts stream
     "occlusion_walk.cu": {"rt_occlusion_walk": [
         _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-        _P]},
+        _P, _P]},
     "tile_walk.cu": {"rt_tile_walk": _WALK},
     # sc_bounds cbounds ctable SC C W ct gmax o d tmin tmax vis n any_hit
     # instances t prim u v obj stream
@@ -178,5 +180,14 @@ def check_rc(name, rc):
 
 
 def require(cond, msg):
+    """An argument check: wrong device, dtype, shape or contiguity."""
     if not cond:
         raise ValueError(msg)
+
+
+def unsupported(cond, msg):
+    """A capacity check: more clusters than a kernel takes, or tables past
+    its shared memory. What lies outside the port raises
+    NotImplementedError, as the package promises."""
+    if not cond:
+        raise NotImplementedError(msg)

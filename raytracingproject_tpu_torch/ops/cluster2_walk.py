@@ -48,7 +48,7 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
                                      shadow_any_hit=shadow_any_hit,
                                      has_instances=has_instances)
     kernels.require(int(gmax) > 0, "gmax must be positive")
-    kernels.require(
+    kernels.unsupported(
         smem_per_warp(sc_bounds.shape[0], int(gmax), ctable.shape[1])
         <= SMEM_BYTES,
         f"SC {sc_bounds.shape[0]} + gmax {gmax} entry tables do not fit one "
@@ -68,6 +68,9 @@ def launch_two_level(entry, sc_bounds, cbounds, ctable, cluster_tris, gmax,
     the outputs and launch C entry point `entry`; returns the hit dict."""
     n, sc, c, w = o.shape[0], sc_bounds.shape[0], cbounds.shape[0], \
         ctable.shape[1]
+    kernels.unsupported(
+        sc <= MAX_SUPERCLUSTERS,
+        f"{sc} superclusters: the kernel takes at most {MAX_SUPERCLUSTERS}")
     req = kernels.require
     for name, x in (("sc_bounds", sc_bounds), ("cbounds", cbounds),
                     ("ctable", ctable), ("o", o), ("d", d), ("tmin", tmin),
@@ -76,8 +79,7 @@ def launch_two_level(entry, sc_bounds, cbounds, ctable, cluster_tris, gmax,
         req(x.is_contiguous(), f"{name} must be contiguous")
         req(x.dtype == (torch.int32 if name == "visibility"
                         else torch.float32), f"{name}: wrong dtype {x.dtype}")
-    req(0 < sc <= MAX_SUPERCLUSTERS,
-        f"{sc} superclusters: the kernel takes 1..{MAX_SUPERCLUSTERS}")
+    req(sc > 0, "the walk needs at least one supercluster")
     req(sc_bounds.shape == (sc, 8), "sc_bounds must be (SC, 8)")
     req(c > 0 and cbounds.shape == (c, 6), "cbounds must be (C, 6)")
     req(ctable.shape[0] == c and w == ci.row_width(cluster_tris),

@@ -6,6 +6,14 @@ ops/cluster_intersect.py `intersect_clusters`, which is its plain
 version. A CPU tensor takes the plain version; a CUDA tensor launches
 the hand-written kernel csrc/cluster_walk.cu or raises. `launches`
 counts kernel launches.
+
+The packed visit key keeps a 9-bit cluster id, so the kernel takes at
+most MAX_CLUSTERS clusters; `fits(C)` states it, and the integrator sends
+a larger single-level table to K4 (ops/tile_walk.py), as the JAX package
+does when its one-hot tables decline to pack. With counts=True the
+counting variant runs and the call also returns (N, 2) int32 counts per
+lane: the cluster rows it tested and the cluster boxes it tested (CUDA
+tensors only).
 """
 
 from __future__ import annotations
@@ -20,11 +28,21 @@ launches = 0
 MAX_CLUSTERS = 512   # 9-bit cluster id in the packed visit key
 
 
+def fits(c):
+    """Whether a single-level table of c clusters is within K2's (and
+    K7's) capacity."""
+    return 0 < int(c) <= MAX_CLUSTERS
+
+
 def check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                    visibility):
-    """Raise ValueError unless the arguments are what the closest-hit
-    walk kernels (K2, K4) take; returns (N, C, W)."""
+                    visibility, max_clusters=MAX_CLUSTERS):
+    """Raise NotImplementedError past the kernel's capacity of
+    max_clusters clusters, then ValueError unless the arguments are what
+    the closest-hit walk kernels (K2, K4, K7) take; returns (N, C, W)."""
     n, c, w = o.shape[0], cbounds.shape[0], ctable.shape[1]
+    kernels.unsupported(
+        c <= max_clusters, f"{c} clusters: the kernel takes at most "
+        f"{max_clusters}")
     req = kernels.require
     for name, x in (("cbounds", cbounds), ("ctable", ctable), ("o", o),
                     ("d", d), ("tmin", tmin), ("tmax", tmax),
@@ -33,7 +51,7 @@ def check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
         req(x.is_contiguous(), f"{name} must be contiguous")
         req(x.dtype == (torch.int32 if name == "visibility"
                         else torch.float32), f"{name}: wrong dtype {x.dtype}")
-    req(0 < c <= MAX_CLUSTERS, f"{c} clusters: the kernel takes 1..512")
+    req(c > 0, "the walk needs at least one cluster")
     req(cbounds.shape == (c, 6), "cbounds must be (C, 6)")
     req(ctable.shape[0] == c and w == ci.row_width(cluster_tris),
         "ctable must be (C, row_width(cluster_tris))")
@@ -45,20 +63,26 @@ def check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
 
 def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
                             tmax, visibility, shadow_any_hit=False,
-                            has_instances=False, has_motion=False):
+                            has_instances=False, has_motion=False,
+                            counts=False):
     """Closest hit (or any hit) over the cluster tables; returns dict
-    t, u, v (f32) and prim, object (int32), (N,) each."""
+    t, u, v (f32) and prim, object (int32), (N,) each; with counts=True
+    (hit dict, (N, 2) int32 rows and boxes tested per lane)."""
     global launches
     if has_instances or has_motion:
         raise NotImplementedError(
             "instance and motion cluster rows are not ported")
     if o.device.type == "cpu":
+        if counts:
+            raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit)
     n, c, w = check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin,
                               tmax, visibility)
     dev = o.device
+    cnt = torch.empty((n, 2), dtype=torch.int32, device=dev) \
+        if counts else None
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
@@ -69,7 +93,9 @@ def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
         o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
         visibility.data_ptr(), n, int(bool(shadow_any_hit)),
         t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        obj.data_ptr(), kernels.current_stream())
+        obj.data_ptr(), cnt.data_ptr() if counts else None,
+        kernels.current_stream())
     kernels.check_rc("cluster_walk", rc)
     launches += 1
-    return {"t": t, "prim": prim, "u": u, "v": v, "object": obj}
+    hit = {"t": t, "prim": prim, "u": u, "v": v, "object": obj}
+    return (hit, cnt) if counts else hit

@@ -31,10 +31,10 @@ def intersect_clusters_dual_walk(cbounds, ctable, cluster_tris, o_c, d_c,
     if has_instances or has_motion:
         raise NotImplementedError(
             "instance and motion cluster rows are not ported")
-    if cbounds.shape[0] > cluster_walk.MAX_CLUSTERS:
-        raise NotImplementedError(
-            f"{cbounds.shape[0]} clusters: the union walk takes at most "
-            f"{cluster_walk.MAX_CLUSTERS}")
+    kernels.unsupported(
+        cbounds.shape[0] <= cluster_walk.MAX_CLUSTERS,
+        f"{cbounds.shape[0]} clusters: the union walk takes at most "
+        f"{cluster_walk.MAX_CLUSTERS}")
     if o_c.device.type == "cpu":
         return ci.intersect_clusters_dual(
             cbounds, ctable, cluster_tris, o_c, d_c, tmin_c, tmax_c, vis_c,

@@ -52,9 +52,10 @@ instanced scenes) under kg["pallas_clusters2"] (default "auto" = on):
 kg["pallas_onehot2"] (opt-in) selects K6 (ops/onehot2_walk.py) where the
 groups fit its inner walk (sc_gmax <= 128), else the two-level walk K5
 (ops/cluster2_walk.py). Single-level tables: kg["pallas_onehot"]
-(default "auto" = on) the per-lane walk K2 (ops/cluster_walk.py); else
-kg["pallas_clusters"] (default "auto" = on) the tile-shared walk K4
-(ops/tile_walk.py). With the chosen kernel's flag False the plain walk
+(default "auto" = on) the per-lane walk K2 (ops/cluster_walk.py) where
+the table has at most 512 clusters; else kg["pallas_clusters"] (default
+"auto" = on) the tile-shared walk K4 (ops/tile_walk.py, up to 640;
+`_closest_walk_name`). With the chosen kernel's flag False the plain walk
 ops/cluster_intersect.py runs, on CPU tensors only. The NEE shadow test
 and the volume dual sweep go through K3 (ops/occlusion_walk.py) when
 kg["pallas_occlusion"] allows (default: every single-level cluster scene
@@ -125,6 +126,20 @@ def _flag(kg, name):
     return True if mode == "auto" else bool(mode)
 
 
+def _closest_walk_name(kg):
+    """The walk of single-level cluster tables, as the JAX package picks
+    it: K2 ("cluster_walk") under pallas_onehot where the table fits its
+    packed keys (C <= 512: the reference packs its one-hot tables only
+    then), else K4 ("tile_walk", up to 640 clusters) under
+    pallas_clusters, else None (the plain walk)."""
+    c = int(kg["dscene"]["cluster_bounds"].shape[0])
+    if _flag(kg, "pallas_onehot") and cluster_walk.fits(c):
+        return "cluster_walk"
+    if _flag(kg, "pallas_clusters"):
+        return "tile_walk"
+    return None
+
+
 def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
     """Closest hit (any hit with shadow=True) through K1 on use_brute
     scenes, K5 or K6 on two-level tables, K2 or K4 on single-level ones,
@@ -151,12 +166,10 @@ def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
                 ds["sc_bounds"], *args[:3], int(kg["sc_gmax"]), *args[3:],
                 shadow_any_hit=shadow, has_instances=inst)
         kernel_flags = "pallas_clusters2 (K5)"
-    elif _flag(kg, "pallas_onehot"):
-        return cluster_walk.intersect_clusters_walk(
-            *args, shadow_any_hit=shadow, has_instances=inst)
-    elif _flag(kg, "pallas_clusters"):
-        return tile_walk.intersect_clusters_tile(
-            *args, shadow_any_hit=shadow, has_instances=inst)
+    elif (walk := _closest_walk_name(kg)) is not None:
+        fn = (cluster_walk.intersect_clusters_walk if walk == "cluster_walk"
+              else tile_walk.intersect_clusters_tile)
+        return fn(*args, shadow_any_hit=shadow, has_instances=inst)
     else:
         kernel_flags = "pallas_onehot (K2) or pallas_clusters (K4)"
     if o.device.type != "cpu":
@@ -231,7 +244,8 @@ def _use_fused_nee(kg):
         return False
     if int(ds["light_dist_type"].shape[0]) == 0:
         return False
-    return _flag(kg, "pallas_onehot")
+    return _flag(kg, "pallas_onehot") \
+        and cluster_walk.fits(ds["cluster_bounds"].shape[0])
 
 
 def _dual_walk(kg, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmax_a, vis_a):

@@ -59,9 +59,9 @@ def intersect_clusters2_onehot(sc_bounds, cbounds, ctable, cluster_tris, gmax,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit,
                                      has_instances=has_instances)
-    kernels.require(fits(gmax),
-                    f"gmax {gmax}: the inner walk takes groups of 1..{G_PAD}")
-    kernels.require(
+    kernels.unsupported(
+        fits(gmax), f"gmax {gmax}: the inner walk takes groups of 1..{G_PAD}")
+    kernels.unsupported(
         smem_per_warp(sc_bounds.shape[0]) <= SMEM_BYTES,
         f"the SC {sc_bounds.shape[0]} entry table does not fit one warp's "
         "shared memory")

@@ -8,7 +8,10 @@ launches the hand-written kernel csrc/tile_walk.cu or raises. The kernel
 walks a warp of 32 rays together, one cluster per step, so prim and
 object may differ from the plain version's at exact-t ties between
 clusters; hit masks, t, u and v agree. `launches` counts kernel
-launches.
+launches. It keeps a float entry table, not K2's packed keys, so it takes
+single-level tables up to the JAX package's single-level cap,
+MAX_CLUSTERS (640): the (C, 32) table is 80 KB a warp there, and the
+host launches two warps a block.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster_walk as cw
 
 launches = 0
+
+MAX_CLUSTERS = 640   # the JAX package's single-level cap
 
 
 def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
@@ -36,7 +41,7 @@ def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit)
     n, c, w = cw.check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin,
-                                 tmax, visibility)
+                                 tmax, visibility, max_clusters=MAX_CLUSTERS)
     dev = o.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
