@@ -84,8 +84,11 @@ test):
 15. K1's closest, any-hit, dual and Moeller-Trumbore modes vs their plain
    versions (ops/intersect.py) on the scene's 36 triangles (a seeded
    boundary mask planted for the dual form), 65,536 random rays with mixed
-   per-lane visibility and 65,536 camera rays: prims, t, u, v equal to
-   the bit, masks equal;
+   per-lane visibility, 65,536 camera rays and the 65,536 rays of the
+   grazing set (ops/dense_sweep.py grazing_rays, where the cull's pads are
+   tightest) and 65,536 rays nearly along the triangles' edges
+   (edge_rays, where the watertight test accepts farthest outside a
+   triangle): prims, t, u, v equal to the bit, masks equal;
 16. accuracy: 64x64, 128 spp, chunk 16, clamp off, against
    twin_f64.npz["cornell_diffuse"] (rmse <= 5.7e-5, <= 0.07% of pixels off
    by more than 1e-3);
@@ -94,22 +97,31 @@ test):
    for the same render (JAX_MEAN_CORNELL_512), K1's closest and any-hit
    modes launched by this render; the inputs of each mode's third call
    are copied;
-18. main-path shapes: at 262,144 lanes the two modes are held against
-   their plain versions on the copied inputs and timed, and so is the
-   Moeller-Trumbore mode on the copied closest-hit rays;
+18. main-path shapes: first the counting variant of each mode runs on
+   its copied input (outputs equal to the plain launch's; per lane the
+   triangles tested, the blocks kept and the blocks the lane's warp kept;
+   the kept blocks, and but for the any-hit mode the triangles tested,
+   equal on every lane to those of ops/dense_sweep.py kept_blocks:
+   block_keep at gates from the plain watertight test's hits); then at 262,144 lanes the
+   two modes are held against their plain versions on the copied inputs
+   and timed, with the bound of the tests they ran beside the all-pairs
+   bound, and so is the Moeller-Trumbore mode on the copied closest-hit
+   rays;
 
 volume_sss under the host compile's own dispatch (1,008 prims: K1 for
 every closest hit and, in its dual form, both volume-NEE sweeps):
 
 19. K1's four modes vs their plain versions on the scene's 1,008
-   triangles and its real boundary mask, as in 15;
+   triangles and its real boundary mask, random, camera, grazing and
+   edge-on rays, as in 15;
 20. accuracy: 64x64, 128 spp against twin_f64.npz["volume_sss"] under
    volume_sss's gate;
 21. full width: 256x256, 32 spp, chunk 16 (example:volume_sss:dense);
    mean within 1% of JAX_MEAN_VOL_256, K1's closest mode and dual form
    launched; third calls copied;
-22. main-path shapes: at 65,536 lanes the closest mode, the dual form and
-   the Moeller-Trumbore mode on the copied inputs, held and timed;
+22. main-path shapes: the closest mode and the dual form counted on their
+   copied inputs as in 18; at 65,536 lanes they and the Moeller-Trumbore
+   mode on the copied inputs, held and timed;
 
 big_instanced with pallas_onehot2 (K6 for every closest hit and shadow
 test):
@@ -130,18 +142,22 @@ called):
    rays with mixed per-lane visibility paired with any-hit rays from nearby
    origins toward the lamp, 65,536 camera rays paired with NEE-like shadow
    rays, and each ray of the random pairs switched off by an empty window;
-   blocked equal everywhere, the closest hit equal off exact-t ties, tie
-   lanes held to an exact tie;
+   blocked equal everywhere, the closest hit (t, u, v, prim, object)
+   equal to the bit on every lane, ties included: the closest ray visits
+   K2's clusters in K2's order;
 27. accuracy: 64x64, 128 spp, chunk 16, clamp off, fused, against
    twin_f64.npz["glossy_nee_mis"] under glossy's gate; K7 launched;
 28. full width: 512x512, 64 spp, chunk 16 through the CLI code path
    (example:cornell:glossy:fused); finite, mean within 0.5% of
    JAX_MEAN_512, K7 launched and K2 and K3 launched 0 times by this
    render; the inputs of K7's third call (262,144 lanes) are copied;
-29. main-path shapes: at 262,144 lanes K7 on the copied input is held
-   against its plain version and timed; beside it, on the same copied
-   rays, K2 (the closest half) and K3 (the any-hit half), which is what
-   the fused call replaces, both to the bit;
+29. main-path shapes: the counting variant of K7 on the copied input
+   (outputs equal to the plain launch's; per lane the rows read, the rows
+   read once for both rays, the passes and the boxes tested); at 262,144
+   lanes K7 on the copied input is held against its plain version (to the
+   bit) and timed, with the bound of the tests it ran; beside it, on the
+   same copied rays, K2 (the closest half) and K3 (the any-hit half),
+   which is what the fused call replaces, both to the bit;
 30. adaptive loop (session/adaptive.py render_adaptive_device): glossy
    256x256, 32 spp, chunk 4, unfused and fused, once with threshold 0
    (every count equals 32, image mean within 0.5% of the fixed render's at
@@ -165,7 +181,9 @@ time is the median of three timings, each the median of 20 runs. Each
 kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published peaks). The script takes about 5 minutes, the
+H100 SXM's published peaks). K1's and K7's [time] lines also give the
+times of their PR 4 / PR 5 designs (WAS_MS, from PERF.md; not measured
+by the script). The script takes about 6 minutes, the
 kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
@@ -248,6 +266,20 @@ XFORM_OPS = 33 + 68
 # one ray against one triangle in Moeller-Trumbore arithmetic (counted from
 # csrc/dense_sweep.cu dense_mt_kernel)
 MT_OPS = 56
+# K1's cull: one lane against one block's padded box (counted from
+# csrc/dense_sweep.cu keep_block)
+KEEP_OPS = 40
+# the grazing set of K1's checks (ops/dense_sweep.py grazing_rays)
+N_GRAZING = 65536
+# K1's and K7's times on the recorded render inputs of the same cells with
+# their PR 4 / PR 5 designs (per-lane sweep; union walk with a box rescan
+# per visit), on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6).
+# Printed beside the new times, labelled as such; not measured here.
+WAS_MS = {"K1 closest render (volume_sss)": 0.4810,
+          "K1 closest render (cornell)": 0.1325,
+          "K1 any render (cornell)": 0.1237,
+          "K1 dual render (volume_sss)": 0.5043,
+          "K7 dual render": 1.2716}
 # the adaptive phase: glossy at ADAPTIVE_SIZE^2, and the threshold of the
 # run that stops pixels early
 ADAPTIVE_SIZE, ADAPTIVE_SPP, ADAPTIVE_CHUNK = 256, 32, 4
@@ -662,14 +694,15 @@ def shadow_rays(kg, o, d, rng):
 
 
 def timed_cases(cases, n, card, reps=(20, 3)):
-    """Each case (kernel call, plain call, kernel name, compare, bound):
-    held against its plain version, then both timed: the kernel three
-    times (each the median of reps[0] runs; "ms" is the median of the
-    three), the plain version once. Returns ({case: {"ms", "ms_runs",
-    "plain_ms", "bound_ms", "bound_by", "lanes"}}, {kernel: max |t|
-    error})."""
+    """Each case (kernel call, plain call, kernel name, compare, bound[,
+    counted bound]): held against its plain version, then both timed: the
+    kernel three times (each the median of reps[0] runs; "ms" is the
+    median of the three), the plain version once. A sixth element gives
+    the bound of the tests the kernel ran, from its counting variant.
+    Returns ({case: {"ms", "ms_runs", "plain_ms", "bound_ms", "bound_by",
+    "lanes"[, "counted_bound_ms"]}}, {kernel: max |t| error})."""
     times, errs = {}, {}
-    for name, (kern, plain, which, compare, bound) in cases.items():
+    for name, (kern, plain, which, compare, bound, *counted) in cases.items():
         got, ref = kern(), plain()
         sync()
         errs[which] = max(errs.get(which, 0.0),
@@ -680,10 +713,18 @@ def timed_cases(cases, n, card, reps=(20, 3)):
         times[name] = {"ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "lanes": n}
+        extra = ""
+        if counted:
+            times[name]["counted_bound_ms"] = counted[0]()
+            extra += (f", bound of the tests it ran "
+                      f"{times[name]['counted_bound_ms']:.5f} ms")
+        if name in WAS_MS:
+            extra += (f"; was {WAS_MS[name]:.4f} ms (PR 4 / PR 5 design, "
+                      f"PERF.md)")
         log(f"[time] {name} @ {n} lanes: kernel {ms:.4f} ms (median of "
             f"three timings of {reps[0]} runs, {min(runs):.4f}-"
             f"{max(runs):.4f}), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}) ({card})")
+            f"{bound_ms:.5f} ms ({bound_by}){extra} ({card})")
     return times, errs
 
 
@@ -1101,27 +1142,36 @@ def dense_bound(name, args, kw, out):
 def check_dense(kg, n_check, rng, label):
     """K1's four modes against their plain versions on the scene's dense
     arrays: random rays with mixed per-lane visibility and a tenth of the
-    windows empty, and camera rays. Returns max |t| error per mode."""
+    windows empty, camera rays, and the grazing set (ops/dense_sweep.py
+    grazing_rays: rays aimed at corners and edge midpoints, axis-parallel
+    rays, zero direction components, origins on the triangles with tmin
+    1e-5, rays crossing a plane at a grazing angle just outside an edge,
+    rays nearly along an edge) and the edge-on set (ops/dense_sweep.py
+    edge_rays) with mixed visibility. Returns max |t| error per mode."""
+    from raytracingproject_tpu_torch.ops import dense_sweep as k1
     tv, po, ov, bnd = dense_tables(kg, rng)
     dev = tv.device
     side = int(round(n_check ** 0.5))
     packets = mt_packets(tv, po)
     errs = {k: 0.0 for k in DENSE_MODE}
     kinds = np.array([1, 8, 16, 4, 128], np.int32)
-    for rays, (o, d), tmin0 in (
-            ("random", random_rays(n_check, rng, dev), 1e-4),
-            ("camera", camera_rays(kg, side, side, dev), 0.0)):
+    o, d = random_rays(n_check, rng, dev)
+    ray_sets = [("random", o, d, torch.full((n_check,), 1e-4, device=dev))]
+    o, d = camera_rays(kg, side, side, dev)
+    ray_sets.append(("camera", o, d, torch.zeros(o.shape[0], device=dev)))
+    ray_sets.append(("grazing", *k1.grazing_rays(tv, N_GRAZING, SEED)))
+    ray_sets.append(("edge-on", *k1.edge_rays(tv, N_GRAZING, SEED + 1)))
+    for rays, o, d, tmin in ray_sets:
         n = o.shape[0]
-        tmin = torch.full((n,), tmin0, device=dev)
-        empty = rng.uniform(size=n) < (0.1 if rays == "random" else 0.0)
-        tmax = torch.tensor(np.where(empty, tmin0, 1e30).astype(np.float32),
-                            device=dev)
+        empty = torch.tensor(rng.uniform(size=n) < (
+            0.1 if rays == "random" else 0.0), device=dev)
+        tmax = torch.where(empty, tmin, 1e30)
         tmax_any = torch.tensor(
             np.where(rng.uniform(size=n) < 0.5, rng.uniform(10, 800, n),
                      1e30).astype(np.float32), device=dev)
         tmax_c = torch.tensor(rng.uniform(10, 1000, n).astype(np.float32),
                               device=dev)
-        vis = torch.tensor(kinds[rng.integers(0, 5, n)] if rays == "random"
+        vis = torch.tensor(kinds[rng.integers(0, 5, n)] if rays != "camera"
                            else np.ones(n, np.int32), device=dev)
         svis = torch.full((n,), 128, dtype=torch.int32, device=dev)
         calls = {
@@ -1137,6 +1187,97 @@ def check_dense(kg, n_check, rng, label):
             errs[name] = max(errs[name], DENSE_COMPARE[name](
                 f"{name} {label} {rays}", ref, got))
     return errs
+
+
+def _tensors(x):
+    """The output tensors of a wrapper call, in order (a dict's values, a
+    tuple's items, recursively, or the tensor itself)."""
+    if isinstance(x, dict):
+        return list(x.values())
+    if isinstance(x, tuple):
+        return [t for y in x for t in _tensors(y)]
+    return [x]
+
+
+def _dense_counted(name, args, kw):
+    """K1's counting variant on a call: (outputs, (N, 3) counts)."""
+    out = wrapper(name)(*args, counts=True, **kw)
+    if name == "dense_dual":
+        return out[:3], out[3]
+    return out
+
+
+def dense_count_phase(label, name, rec):
+    """The counting variant of K1 on a recorded call: outputs equal the
+    plain launch's, the kept blocks (and, but for the any-hit mode, the
+    triangles tested) equal ops/dense_sweep.py kept_blocks's on every
+    lane. Prints and returns per lane the mean, p50, p99 and max of the
+    triangles tested and the blocks kept over the lanes with a window, the
+    warp's kept blocks over the lane's own, and the share of lanes with a
+    window."""
+    from raytracingproject_tpu_torch.ops import dense_sweep as k1
+    from raytracingproject_tpu_torch.ops import intersect as isect
+    args, kw = rec["args"], rec["kw"]
+    a = inspect.signature(dense_plain(name)).bind(*args, **kw)
+    a.apply_defaults()
+    a = a.arguments
+    ref = wrapper(name)(*args, **kw)
+    got, cnt = _dense_counted(name, args, kw)
+    sync()
+    assert all(torch.equal(x, y) for x, y in zip(
+        _tensors(ref), _tensors(got))), \
+        f"{label}: the counting variant's outputs differ"
+    keep, tested = k1.kept_blocks(name[len("dense_"):], a)
+    kept = keep.sum(1).to(torch.int32)
+    assert torch.equal(cnt[:, 1], kept), \
+        f"{label}: kept blocks differ from block_keep's on " \
+        f"{int((cnt[:, 1] != kept).sum())} lanes"
+    if tested is not None:
+        assert torch.equal(cnt[:, 0], tested), \
+            f"{label}: triangles tested differ from the mirror's"
+    c = cnt.to(torch.float64)
+    if name == "dense_dual":
+        live = (a["tmax_closest"] > a["tmin"]) | (a["tmax_any"] > a["tmin"])
+    else:
+        live = a["tmax"].clamp(max=1e30) > a["tmin"]
+    st = {"live_share": float(live.to(torch.float64).mean())}
+    nb = (a["tri_verts"].shape[0] + isect.TRI_BLOCK - 1) // isect.TRI_BLOCK
+    for j, key in enumerate(("tested", "kept", "warp_kept")):
+        x = c[live, j]
+        q = torch.quantile(x, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                           device=x.device))
+        st[key] = {"mean": float(x.mean()), "p50": float(q[0]),
+                   "p99": float(q[1]), "max": float(x.max())}
+    st["kept_share"] = st["kept"]["mean"] / nb
+    st["warp_over_own"] = st["warp_kept"]["mean"] / max(st["kept"]["mean"],
+                                                        1e-9)
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())
+    log(f"[counts] {label} ({cnt.shape[0]} lanes, {nb} blocks, "
+        f"{st['live_share']:.4f} with a window): per lane with a window "
+        f"triangles tested {fmt(st['tested'])}; blocks kept "
+        f"{fmt(st['kept'])} ({st['kept_share']:.4f} of the blocks); its "
+        f"warp's kept blocks {fmt(st['warp_kept'])} ({st['warp_over_own']:.2f}"
+        f"x its own); kept blocks equal block_keep's on every lane"
+        + ("" if tested is None else ", triangles tested the mirror's"))
+    return st
+
+
+def dense_counted_bound(name, args, kw):
+    """(bound ms) of the tests a K1 call ran, from its counting variant:
+    every lane with a window evaluates keep_block for every block
+    (KEEP_OPS) and the watertight test for each triangle it tested; bytes
+    as dense_bound's."""
+    from raytracingproject_tpu_torch.ops import intersect as isect
+    out, cnt = _dense_counted(name, args, kw)
+    a = inspect.signature(dense_plain(name)).bind(*args, **kw).arguments
+    if name == "dense_dual":
+        live = (a["tmax_closest"] > a["tmin"]) | (a["tmax_any"] > a["tmin"])
+    else:
+        live = a["tmax"].clamp(max=1e30) > a["tmin"]
+    nb = (a["tri_verts"].shape[0] + isect.TRI_BLOCK - 1) // isect.TRI_BLOCK
+    ops = float(live.sum()) * nb * KEEP_OPS \
+        + float(cnt[:, 0].to(torch.float64).sum()) * TRI_OPS
+    return _bound(_nbytes(*a.values(), *_tensors(out)), ops)[0]
 
 
 def dense_main_path_checks(kg, label, n, card, rec):
@@ -1156,7 +1297,9 @@ def dense_main_path_checks(kg, label, n, card, rec):
                                                                   **kw),
             name, DENSE_COMPARE[name],
             lambda out, name=name, args=args, kw=kw: dense_bound(
-                name, args, kw, out))
+                name, args, kw, out),
+            lambda name=name, args=args, kw=kw: dense_counted_bound(
+                name, args, kw))
     a = inspect.signature(dense_plain("dense_closest")).bind(
         *rec["dense_closest"]["args"],
         **rec["dense_closest"]["kw"]).arguments
@@ -1176,14 +1319,15 @@ def dense_main_path_checks(kg, label, n, card, rec):
 
 
 def compare_dual_walk(name, ref, got):
-    """K7: blocked masks equal everywhere; the closest hit as compare_hits
-    holds a walk's. Returns the max |t| error off the tie lanes."""
+    """K7: blocked masks equal everywhere; the closest ray visits K2's
+    clusters in K2's order, so its hit equals the plain walk's to the bit
+    on every lane, ties included. Returns the max |t| error (0)."""
     (rhit, rblk), (ghit, gblk) = ref, got
     assert torch.equal(rblk, gblk), f"{name}: blocked masks differ"
-    err = compare_hits(name, rhit, ghit)
+    compare_equal(name, rhit, ghit)
     log(f"[kernels] {name}: blocked equal "
         f"({float(gblk.float().mean()):.4f} blocked)")
-    return err
+    return 0.0
 
 
 def dual_bound(args, out):
@@ -1208,6 +1352,64 @@ def dual_bound(args, out):
     boxes = float(live_c.sum() + live_a.sum()) * cb.shape[0]
     ops = boxes * SLAB_OPS + float(tris.sum()) * TRI_OPS
     return _bound(_nbytes(*args, *hit.values(), blocked), ops)
+
+
+def _dual_args(rec):
+    """A recorded K7 call's 13 table and ray arguments, in order."""
+    ra = inspect.signature(wrapper("dual_walk")).bind(*rec["args"],
+                                                      **rec["kw"])
+    ra.apply_defaults()
+    a = ra.arguments
+    assert not a["has_instances"] and not a["has_motion"]
+    assert not a["counts"]
+    return tuple(a.values())[:13]
+
+
+def dual_count_phase(label, rec):
+    """The counting variant of K7 on a recorded call: outputs equal the
+    plain launch's. Prints and returns per lane the mean, p50, p99 and max
+    of the rows read, the rows read once for both rays, the passes and the
+    boxes tested, beside the earlier design's box tests (a rescan of every
+    box for both rays on every visit and one that found nothing:
+    (rows + 1) x 2C)."""
+    args = _dual_args(rec)
+    k7 = wrapper("dual_walk")
+    hit, blk = k7(*args)
+    ghit, gblk, cnt = k7(*args, counts=True)
+    sync()
+    assert torch.equal(blk, gblk) and all(
+        torch.equal(hit[k], ghit[k]) for k in hit), \
+        f"{label}: the counting variant's outputs differ"
+    c = cnt.to(torch.float64)
+    st = {}
+    for j, key in enumerate(("rows", "shared_rows", "passes", "boxes")):
+        x = c[:, j]
+        q = torch.quantile(x, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                           device=x.device))
+        st[key] = {"mean": float(x.mean()), "p50": float(q[0]),
+                   "p99": float(q[1]), "max": float(x.max())}
+    ncl = int(args[0].shape[0])
+    st["boxes_rescan_design_mean"] = float((c[:, 0] + 1.0).mean()) * 2 * ncl
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())
+    log(f"[counts] {label} ({cnt.shape[0]} lanes, C = {ncl}): rows read "
+        f"{fmt(st['rows'])}; rows read once for both rays "
+        f"{fmt(st['shared_rows'])}; passes {fmt(st['passes'])}; boxes "
+        f"tested {fmt(st['boxes'])}; the rescan design's box tests "
+        f"{st['boxes_rescan_design_mean']:.2f}")
+    return st
+
+
+def dual_counted_bound(args):
+    """(bound ms) of the tests a K7 call ran, from its counting variant:
+    its box tests (SLAB_OPS each) and, for each row read, the row's
+    triangles against one ray, or both where the row served both (the
+    table's mean triangles per row); bytes as dual_bound's."""
+    hit, blk, cnt = wrapper("dual_walk")(*args, counts=True)
+    c = cnt.to(torch.float64)
+    per_row = float(_prims_per_cluster(args[1], int(args[2])).mean())
+    ops = float(c[:, 3].sum()) * SLAB_OPS \
+        + float((c[:, 0] + c[:, 1]).sum()) * per_row * TRI_OPS
+    return _bound(_nbytes(*args, *hit.values(), blk), ops)[0]
 
 
 def check_dual(kg, n_check, rng):
@@ -1277,12 +1479,7 @@ def fused_main_path_checks(kg, side, card, rec):
     on the same rays K2 (the closest half) and K3's surface form (the
     any-hit half), the two calls the union walk replaces."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
-    ra = inspect.signature(wrapper("dual_walk")).bind(*rec["args"],
-                                                      **rec["kw"])
-    ra.apply_defaults()
-    a = ra.arguments
-    assert not a["has_instances"] and not a["has_motion"]
-    args = tuple(a.values())[:13]
+    args = _dual_args(rec)
     (cb, ctab, ct, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a,
      _vis_a) = args
     n = o_c.shape[0]
@@ -1306,7 +1503,8 @@ def fused_main_path_checks(kg, side, card, rec):
         "K7 dual render": (
             lambda: k7(*args), lambda: ci.intersect_clusters_dual(*args),
             "dual_walk", compare_dual_walk,
-            lambda out: dual_bound(args, out)),
+            lambda out: dual_bound(args, out),
+            lambda: dual_counted_bound(args)),
         "K2 closest on K7's render input": (
             lambda: k2(*closest), lambda: ci.intersect_clusters(*closest),
             "cluster_walk", exactly(compare_hits),
@@ -1500,7 +1698,8 @@ def main():
         f"{kernels.build_info['seconds']:.2f} s (load "
         f"{time.perf_counter() - t0:.2f} s)")
     for line in kernels.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("==") \
+                or "entry function" in line:
             log(f"[build] {line.strip()}")
     rng = np.random.default_rng(SEED)
 
@@ -1583,6 +1782,9 @@ def main():
     c_launch, c_rec, c_st = full_width(
         card, "example:cornell", 512, 64, JAX_MEAN_CORNELL_512, 0.005,
         ("dense_closest", "dense_any"), chunk=32)
+    for name in ("dense_closest", "dense_any"):
+        counts[name] = {"cornell render": dense_count_phase(
+            f"K1 {DENSE_MODE[name]}, cornell render", name, c_rec[name])}
     c_times, e = dense_main_path_checks(ckg, "cornell", 512 * 512, card, c_rec)
     merge(errs, e)
 
@@ -1596,6 +1798,10 @@ def main():
     d_launch, d_rec, d_st = full_width(
         card, "example:volume_sss:dense", 256, 32, JAX_MEAN_VOL_256, 0.01,
         ("dense_closest", "dense_dual"))
+    for name in ("dense_closest", "dense_dual"):
+        counts.setdefault(name, {})["volume_sss render"] = dense_count_phase(
+            f"K1 {DENSE_MODE[name]}, volume_sss dense render", name,
+            d_rec[name])
     d_times, e = dense_main_path_checks(dkg, "volume_sss", 256 * 256, card,
                                         d_rec)
     merge(errs, e)
@@ -1623,6 +1829,8 @@ def main():
         card, "example:cornell:glossy:fused", 512, 64, JAX_MEAN_512, 0.005,
         ("dual_walk",))
     assert f_launch["cluster_walk"] == 0 and f_launch["occlusion_walk"] == 0
+    counts["dual_walk"] = {"glossy fused render": dual_count_phase(
+        "K7, glossy fused render", f_rec["dual_walk"])}
     f_times, e = fused_main_path_checks(kg, 512, card, f_rec["dual_walk"])
     merge(errs, e)
 
@@ -1682,6 +1890,8 @@ def main():
             "library_ms": None, "timed_case": case, "lanes": tm["lanes"],
             "cases": {c: t for c, t in times.items()
                       if c.startswith(prefix)}})
+        if "counted_bound_ms" in tm:
+            kern[-1]["counted_bound_ms"] = tm["counted_bound_ms"]
         if name in counts:
             kern[-1]["counts"] = counts[name]
     # K1's fourth mode computes the TPU kernel's own Moeller-Trumbore

@@ -47,11 +47,6 @@
 // spills, in both variants; chip_smoke.py prints the build log.
 #include "watertight.cuh"
 
-#define ID_BITS 9
-#define ID_MASK ((1u << ID_BITS) - 1u)
-#define NEG_KEY 0x80000000u  // sign bit of the entry: a negative entry
-#define NO_KEY 0xFFFFFFFFu   // an empty queue slot (no key reaches it)
-
 // Queue length: the counts (PERF.md) give p99 4 visits a lane on glossy's
 // render input, so one pass serves nearly every lane.
 #define K2_QUEUE 8
@@ -88,29 +83,19 @@ __global__ void cluster_walk_kernel(
     while (more) {
         // ---- one pass: the Q smallest live keys above last, sorted ----
         unsigned int q[Q];
-#pragma unroll
-        for (int j = 0; j < Q; ++j) q[j] = NO_KEY;
+        rt_queue_clear(q);
         bool fell_pos = false, fell_neg = false;
         const float gate = fminf(bt, RT_INF);
         for (int c = 0; c < C; ++c) {
-            float e = slab_entry(sb + 6 * c, ox, oy, oz, ix, iy, iz, tmin, tmax);
+            const float e =
+                slab_entry(sb + 6 * c, ox, oy, oz, ix, iy, iz, tmin, tmax);
             if (e >= RT_INF) continue;
-            e = e + 0.0f;  // -0.0 -> +0.0 before taking the bits
-            const unsigned int key =
-                (__float_as_uint(e) & ~ID_MASK) | (unsigned int)c;
-            if ((long long)key <= last) continue;                   // visited
-            if (__uint_as_float(key & ~ID_MASK) >= gate) continue;  // culled
-            unsigned int out = key;  // the key that falls off the end
-            if (key < q[Q - 1]) {
-                out = q[Q - 1];
-#pragma unroll
-                for (int j = Q - 1; j > 0; --j)
-                    q[j] = key < q[j - 1] ? q[j - 1]
-                                          : (key < q[j] ? key : q[j]);
-                q[0] = key < q[0] ? key : q[0];
-            }
-            if (out != NO_KEY) {
-                if (out & NEG_KEY)
+            const unsigned int key = rt_pack_key(e, c);
+            if ((long long)key <= last) continue;      // visited
+            if (rt_key_entry(key) >= gate) continue;   // culled
+            const unsigned int out = rt_queue_insert(q, key);
+            if (out != RT_NO_KEY) {
+                if (out & RT_KEY_NEG)
                     fell_neg = true;
                 else
                     fell_pos = true;
@@ -121,18 +106,16 @@ __global__ void cluster_walk_kernel(
         bool done = false;
         for (int j = 0; j < Q; ++j) {
             const unsigned int key = q[0];
-#pragma unroll
-            for (int k = 0; k < Q - 1; ++k) q[k] = q[k + 1];
-            q[Q - 1] = NO_KEY;
-            if (key == NO_KEY) break;
-            if (__uint_as_float(key & ~ID_MASK) >= fminf(bt, RT_INF)) {
+            rt_queue_pop(q);
+            if (key == RT_NO_KEY) break;
+            if (rt_key_entry(key) >= fminf(bt, RT_INF)) {
                 // retired since the pass; so is every later key of
                 // non-negative entry, including those that fell off
-                if (!(key & NEG_KEY)) fell_pos = false;
+                if (!(key & RT_KEY_NEG)) fell_pos = false;
                 continue;
             }
             last = key;
-            const float* row = ctable + (size_t)(key & ID_MASK) * W;
+            const float* row = ctable + (size_t)(key & RT_KEY_ID_MASK) * W;
             if (COUNT) ++rows;
             for (int k = 0; k < ct; ++k) {
                 const float pid = __ldg(row + pbase + k);

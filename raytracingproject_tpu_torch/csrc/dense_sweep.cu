@@ -13,209 +13,665 @@
 // too. Plain versions: ops/intersect.py intersect_brute,
 // shadow_blocked_brute, intersect_brute_occlusion, intersect_brute_mt.
 //
-// Design: one thread per ray, 128-thread blocks. The ray's shear basis
-// (watertight.cuh wt_setup) is computed once. Triangles are staged through
-// shared memory, STAGE at a time: each thread of the block converts a few
-// triangles to the (v0, e1 = v1 - v0, e2 = v2 - v0) layout of the plain
-// version and looks up the triangle's object and its object's visibility
-// bits; then every thread walks the stage, all threads reading the same
-// shared-memory word at a time (a broadcast: no bank conflict). The corners
-// are rebuilt as v0 + e1, v0 + e2 as the plain version does, which decides
-// the last bit.
-//
-// The closest-hit winner follows the plain version literally: triangles go
-// in blocks of 8 against the best t before the block; inside a block a tie
-// in t goes to the highest index (u and v each to the largest among the
-// tied); a later block wins only with a strictly smaller t. Walls and boxes
-// that share an edge do tie there. `any` stops testing once every lane of
-// the warp is blocked or has an empty window. `dual` tests against
-// RAY_TMAX and applies its two windows afterwards, as the plain version.
-//
 // What bounds it on the H100: arithmetic. A test is ~110 float32
 // operations on 12 staged words that every thread of the block shares, so
 // the bytes are the rays and results (tens of bytes per ray) while the
-// work is rays x triangles x 110.
+// all-pairs work is rays x triangles x 110. The render modes therefore do
+// fewer tests, not faster ones, and every output stays the plain
+// version's to the bit.
+//
+// Design of the render modes (closest, any, dual): 128-thread blocks, one
+// thread per ray. Triangles are staged through shared memory STAGE at a
+// time: each thread converts a few triangles to their corners v0,
+// v1 = v0 + (tv1 - v0), v2 = v0 + (tv2 - v0) (the plain version's
+// operations, once per triangle instead of once per ray and triangle) and
+// looks up the triangle's object and its object's visibility bits, and
+// computes its unit normal and the bounds of the edge-on test; then for
+// each block of TRI_BLOCK triangles one thread writes the block's two
+// padded boxes, its edge-on data and the OR of its visibility bits.
+//
+// 1. Empty windows cost nothing. A block of threads takes `rounds` x 128
+//    lanes; a lane whose window is empty (closest and any: tmax <= tmin;
+//    dual: both windows empty) writes its miss result at once, and the
+//    others are gathered in lane order into a shared list (__ballot_sync /
+//    __popc, a prefix over the warps), which the block runs 128 at a time,
+//    re-staging the triangles for each round.
+// 2. A lane tests a block's triangles only if the block can hold a
+//    triangle that changes its result (keep_block): the lane's visibility
+//    meets the block's, and the block's boxes admit a hit below the lane's
+//    gate. A triangle changes a result only with t below the gate: the
+//    best t before the block (closest; a later block wins only with a
+//    strictly smaller t), tmax until blocked (any), and K3's
+//    occlusion_gate, max(min(max(t_b, t_o), tmax_c), blocked ? -inf :
+//    tmax_a) (dual). Whole blocks are skipped, so the block-of-8 winner
+//    rule (a tie in t goes to the highest index, u and v each to the
+//    largest) runs on the same triangles against the same best t.
+// 3. A warp's lanes keep different blocks (on volume_sss's recorded
+//    bounce rays the warp's union is 3-5x a lane's own, PERF.md), and a
+//    thread that tests a block's 8 triangles for its own lane leaves the
+//    others idle. So a block kept by at most SPREAD_MAX lanes of the warp
+//    has its (lane, triangle) pairs spread over the 32 threads, 4 lanes a
+//    round: each thread fetches its pair's ray by shuffles, tests one
+//    triangle, and each group of 8 threads reduces its lane's results by
+//    the mode's rule (closest: the smallest t, among ties the highest
+//    index and u and v each the largest; dual: two minima and an OR; any:
+//    an OR). These are associative and commutative, so the bits do not
+//    depend on the order. A block kept by more lanes runs per lane.
+//
+// keep_block is exact, not a heuristic. Let u = 2^-24. The test shears
+// the corners into the ray's frame (x, y across the ray, z its
+// parameter), takes the edge functions w_i with tolerances tol_i = 8u
+// (|p1| + |p2|) and det = sum w_i, and accepts when every w_i >= -tol_i
+// (or every w_i <= tol_i) and |det| > T = sum tol_i. Each of the block's
+// two boxes is padded by BOX_REL x (largest |coordinate| of the block) +
+// BOX_ABS and, per lane, by BOX_REL x (largest |coordinate| of the
+// origin): some 100x the rounding of the shear, of the slab test and of
+// the ray's frame against the line (o, d), a few u of those coordinates.
+// The narrow box grows by MU and the wide one by WIDE times the block's
+// extent on each axis. A block is kept where all three hold:
+//  - the bound on t. t = sum(w_i z_i) / det, and the tests bound the
+//    negative weights w_i / det to a sum below 1 (T / det < 1). So t lies
+//    in [2 zlo - zhi, 2 zhi - zlo], with [zlo, zhi] the ray's interval in
+//    the narrow box's slab on its dominant axis kz (wt_setup's), widened
+//    by T_REL of its ends for the rounding of t. That range must meet
+//    (tmin, gate).
+//  - the line meets the wide box. The rays' true weights lambda_i (the
+//    exact barycentrics of the ray in the rounded sheared triangle) differ
+//    from w_i by at most tol_i / 4, so their negative part sums to
+//    nu <= 1.25 T / (0.75 T) = 5/3: the line passes through
+//    sum lambda_i v_i, within nu < WIDE times the extent of the triangle.
+//  - the line meets the narrow box, or the lane is edge-on to the block.
+//    With R the largest |x| + |y| of a corner and L the largest such
+//    length of an edge, R <= (1 + 2 nu) L and T <= 24u R^2, so
+//    nu <= 30u (1 + 2 nu)^2 L^2 / D, with D the exact sum of the edge
+//    functions, twice the rounded sheared triangle's area. Where kappa = 30u L^2 / D <= 0.05
+//    and nu <= 5/3, that gives nu <= 1.3 kappa. L <= 2.83 diam + 4 eps
+//    (|sx|, |sy| <= 1) and D >= 2 A (c - 3u) - 11.4 eps diam - 8 eps^2,
+//    with A the triangle's area, c = |n . d| / |d| and eps <= 5u (M + |o|)
+//    the rounding of a sheared coordinate. So nu <= MU = 0.01 wherever
+//    c >= 3u + (1.9e-3 diam^2 + 11.4 E diam + 16 E^2) / (2 A), E = 1e-6
+//    (M + max |o|); keep_block asks c >= K + (B + G E) E with K = C0 +
+//    C1 alpha, B = C2 beta, G = C3 gamma (alpha = diam^2 / 2A, beta =
+//    diam / 2A, gamma = 1 / 2A, each the block's largest, 2A taken as
+//    |cross| - GEO_REL diam^2, below the true value): twice the bound,
+//    which covers the rounding of the normals and of c. A degenerate
+//    triangle has alpha = beta = gamma = inf and is always edge-on. A lane
+//    that is not edge-on to any of the block's triangles thus meets them
+//    only within MU times their extent, inside the narrow box.
+// ops/dense_sweep.py block_keep computes the same predicate in the same
+// operation order, and tests/test_torch_dense_cull.py holds it against
+// every hit of the plain watertight test on the scenes' triangles, with
+// rays nearly along their edges (ops/dense_sweep.py edge_rays), where a
+// line test with a pad of a few ulps drops hits.
+//
+// The counting variant (COUNT) also writes per lane the triangles it
+// tested, the blocks it kept and, for the lane's warp in its round, the
+// blocks that any lane of the warp kept, into counts[3 * lane].
+//
+// Registers and spills: chip_smoke.py prints the build log (ptxas -v), and
+// PERF.md section 6 records them.
+//
+// Mode mt: one thread per ray, 128-thread blocks, the packets staged 256
+// triangles at a time, every ray against every triangle (no render calls
+// it).
 #include "watertight.cuh"
 
 #define TRI_BLOCK 8
-#define STAGE 256  // triangles per stage: 32 blocks of 8, 12 KB
+#define STAGE 256  // triangles per stage: 32 blocks of 8
+#define STAGE_BLOCKS (STAGE / TRI_BLOCK)
+#define BLOCK 128
+#define WARPS (BLOCK / 32)
+#define MAX_ROUNDS 4
+#define FULL_MASK 0xFFFFFFFFu
+// A block kept by at most SPREAD_MAX lanes of a warp has its (lane,
+// triangle) tests spread over the warp's 32 threads, 4 lanes a round. A
+// round costs one test and ~40 shuffles, so nk lanes cost ~nk / 4 x ~150
+// operations, against 8 tests (~880) per lane: the spread wins up to
+// ~23 lanes, and 20 leaves a margin for the rounds' reductions
+#define SPREAD_MAX 20
+// the cull's constants (kept equal to ops/dense_sweep.py; the header says
+// where each comes from)
+#define BOX_REL 3e-5f
+#define BOX_ABS 1e-3f
+#define T_REL 1e-5f
+#define MU 1e-2f
+#define WIDE 2.0f
+#define GEO_REL 2e-6f
+#define C0 1e-5f
+#define C1 4e-3f
+#define C2 24.0f
+#define C3 32.0f
+#define EPS_E 1e-6f
+#define RT_INFTY __int_as_float(0x7f800000)
+
+enum { MODE_CLOSEST = 0, MODE_ANY = 1, MODE_DUAL = 2 };
 
 struct StagedTris {
-    float tri[STAGE][9];  // v0, e1, e2
-    int obj[STAGE];       // prim_object (-1: padding, never hit)
-    int vis[STAGE];       // object_visibility[object]
-    int bnd[STAGE];       // volume-boundary flag
+    float c[STAGE][9];           // corners v0, v1, v2
+    float nrm[STAGE][3];         // unit normals (0 for a degenerate one)
+    float abg[STAGE][3];         // alpha, beta, gamma of the edge-on test
+    int obj[STAGE];              // prim_object (-1: never hit)
+    int vis[STAGE];              // object_visibility[object]
+    int bnd[STAGE];              // volume-boundary flag
+    float box[STAGE_BLOCKS][6];  // narrow padded box: lo, hi
+    float wbox[STAGE_BLOCKS][6]; // wide padded box: lo, hi
+    float geo[STAGE_BLOCKS][4];  // K, B, G, M of the edge-on test
+    int bvis[STAGE_BLOCKS];      // OR of the block's visibility
 };
 
+static __device__ __forceinline__ float dot3(float ax, float ay, float az,
+                                             float bx, float by, float bz) {
+    return (ax * bx + ay * by) + az * bz;
+}
+
+// Stage triangles [base, base + count) and their blocks' boxes and
+// edge-on data; ends with the stage visible to the whole block.
 static __device__ __forceinline__ void stage_tris(
     StagedTris& s, const float* __restrict__ tri_verts,
     const int* __restrict__ prim_object, const int* __restrict__ obj_vis,
     const unsigned char* __restrict__ boundary, int base, int count) {
+    __syncthreads();  // every thread is done with the previous stage
     for (int k = threadIdx.x; k < count; k += blockDim.x) {
         const float* tv = tri_verts + (size_t)(base + k) * 9;
+        float c[9];
         for (int j = 0; j < 3; ++j) {
             const float v0 = __ldg(tv + j);
-            s.tri[k][j] = v0;
-            s.tri[k][3 + j] = __ldg(tv + 3 + j) - v0;
-            s.tri[k][6 + j] = __ldg(tv + 6 + j) - v0;
+            c[j] = v0;
+            c[3 + j] = v0 + (__ldg(tv + 3 + j) - v0);
+            c[6 + j] = v0 + (__ldg(tv + 6 + j) - v0);
         }
+        for (int j = 0; j < 9; ++j) s.c[k][j] = c[j];
+        const float e1x = c[3] - c[0], e1y = c[4] - c[1], e1z = c[5] - c[2];
+        const float e2x = c[6] - c[0], e2y = c[7] - c[1], e2z = c[8] - c[2];
+        const float e3x = c[6] - c[3], e3y = c[7] - c[4], e3z = c[8] - c[5];
+        const float cx = e1y * e2z - e1z * e2y;
+        const float cy = e1z * e2x - e1x * e2z;
+        const float cz = e1x * e2y - e1y * e2x;
+        const float nl = sqrtf(dot3(cx, cy, cz, cx, cy, cz));
+        const float dm = fmaxf(fmaxf(dot3(e1x, e1y, e1z, e1x, e1y, e1z),
+                                     dot3(e2x, e2y, e2z, e2x, e2y, e2z)),
+                               dot3(e3x, e3y, e3z, e3x, e3y, e3z));
+        const float a2 = nl - GEO_REL * dm;
+        const bool ok = a2 > 0.0f;
+        const float inv = 1.0f / a2;
+        s.abg[k][0] = ok ? dm * inv : RT_INFTY;
+        s.abg[k][1] = ok ? sqrtf(dm) * inv : RT_INFTY;
+        s.abg[k][2] = ok ? inv : RT_INFTY;
+        s.nrm[k][0] = nl > 0.0f ? cx / nl : 0.0f;
+        s.nrm[k][1] = nl > 0.0f ? cy / nl : 0.0f;
+        s.nrm[k][2] = nl > 0.0f ? cz / nl : 0.0f;
         const int ob = __ldg(prim_object + base + k);
         s.obj[k] = ob;
         s.vis[k] = obj_vis ? __ldg(obj_vis + (ob > 0 ? ob : 0)) : 0;
         s.bnd[k] = boundary ? (int)boundary[base + k] : 0;
     }
+    __syncthreads();
+    const int nb = (count + TRI_BLOCK - 1) / TRI_BLOCK;
+    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+        float lo[3] = {RT_INF, RT_INF, RT_INF};
+        float hi[3] = {-RT_INF, -RT_INF, -RT_INF};
+        float al = 0.0f, be = 0.0f, ga = 0.0f;
+        int bv = 0;
+        const int kend = min(b * TRI_BLOCK + TRI_BLOCK, count);
+        for (int k = b * TRI_BLOCK; k < kend; ++k) {
+#pragma unroll
+            for (int j = 0; j < 9; ++j) {
+                lo[j % 3] = fminf(lo[j % 3], s.c[k][j]);
+                hi[j % 3] = fmaxf(hi[j % 3], s.c[k][j]);
+            }
+            al = fmaxf(al, s.abg[k][0]);
+            be = fmaxf(be, s.abg[k][1]);
+            ga = fmaxf(ga, s.abg[k][2]);
+            bv |= s.vis[k];
+        }
+        const float m = fmaxf(fmaxf(fmaxf(fabsf(lo[0]), fabsf(lo[1])),
+                                    fmaxf(fabsf(lo[2]), fabsf(hi[0]))),
+                              fmaxf(fabsf(hi[1]), fabsf(hi[2])));
+        const float pad = BOX_REL * m + BOX_ABS;
+        for (int j = 0; j < 3; ++j) {
+            const float ext = hi[j] - lo[j];
+            s.box[b][j] = lo[j] - (pad + MU * ext);
+            s.box[b][3 + j] = hi[j] + (pad + MU * ext);
+            s.wbox[b][j] = lo[j] - (pad + WIDE * ext);
+            s.wbox[b][3 + j] = hi[j] + (pad + WIDE * ext);
+        }
+        s.geo[b][0] = C0 + C1 * al;
+        s.geo[b][1] = C2 * be;
+        s.geo[b][2] = C3 * ga;
+        s.geo[b][3] = m;
+        s.bvis[b] = bv;
+    }
+    __syncthreads();
 }
 
-struct Ray {
+// What keep_block needs of a lane's ray.
+struct CullRay {
+    float ox, oy, oz, dx, dy, dz;   // origin, direction
+    float ix, iy, iz;               // safe_inv(direction)
+    float mo;                       // largest |origin coordinate|
+    float m;                        // BOX_REL x mo
+    float dn;                       // |direction|
     float tmin;
-    WtRay w;
+    int kz;                         // wt_setup's dominant axis
 };
 
-static __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                               const float* __restrict__ d,
-                                               const float* __restrict__ tmin,
-                                               int i, bool live) {
-    Ray r;
-    // lanes past n carry a ray that the callers never store
-    const float ox = live ? o[3 * i] : 0.0f, oy = live ? o[3 * i + 1] : 0.0f,
-                oz = live ? o[3 * i + 2] : 0.0f;
-    const float dx = live ? d[3 * i] : 1.0f, dy = live ? d[3 * i + 1] : 0.0f,
-                dz = live ? d[3 * i + 2] : 0.0f;
-    r.tmin = live ? tmin[i] : 0.0f;
-    r.w = wt_setup(ox, oy, oz, dx, dy, dz);
+static __device__ __forceinline__ CullRay cull_ray(float ox, float oy,
+                                                   float oz, float dx,
+                                                   float dy, float dz,
+                                                   float tmin) {
+    CullRay c;
+    c.ox = ox; c.oy = oy; c.oz = oz;
+    c.dx = dx; c.dy = dy; c.dz = dz;
+    c.ix = safe_inv(dx); c.iy = safe_inv(dy); c.iz = safe_inv(dz);
+    c.mo = fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
+    c.m = BOX_REL * c.mo;
+    c.dn = sqrtf(dot3(dx, dy, dz, dx, dy, dz));
+    c.tmin = tmin;
+    const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+    const bool zmax = (az >= ax) && (az >= ay);
+    const bool ymax = !zmax && (ay >= ax);
+    c.kz = zmax ? 2 : (ymax ? 1 : 0);
+    return c;
+}
+
+// Whether the line meets box b = [lo(3), hi(3)], grown by the lane's pad
+// (the slab test with no window); the slabs' ends on each axis in n, f.
+static __device__ __forceinline__ bool line_meets(const float* b,
+                                                  const CullRay& r, float* n,
+                                                  float* f) {
+    float t0 = ((b[0] - r.ox) - r.m) * r.ix, t1 = ((b[3] - r.ox) + r.m) * r.ix;
+    n[0] = fminf(t0, t1); f[0] = fmaxf(t0, t1);
+    t0 = ((b[1] - r.oy) - r.m) * r.iy; t1 = ((b[4] - r.oy) + r.m) * r.iy;
+    n[1] = fminf(t0, t1); f[1] = fmaxf(t0, t1);
+    t0 = ((b[2] - r.oz) - r.m) * r.iz; t1 = ((b[5] - r.oz) + r.m) * r.iz;
+    n[2] = fminf(t0, t1); f[2] = fmaxf(t0, t1);
+    return fmaxf(fmaxf(n[0], n[1]), n[2]) <= fminf(fminf(f[0], f[1]), f[2]);
+}
+
+// Whether block b of the stage can hold a triangle that the watertight
+// test hits with tmin < t < gate (see the header).
+static __device__ __forceinline__ bool keep_block(const StagedTris& s, int b,
+                                                  int count,
+                                                  const CullRay& r,
+                                                  float gate) {
+    float n[3], f[3];
+    const bool n_ok = line_meets(s.box[b], r, n, f);
+    const float zl = r.kz == 0 ? n[0] : (r.kz == 1 ? n[1] : n[2]);
+    const float zh = r.kz == 0 ? f[0] : (r.kz == 1 ? f[1] : f[2]);
+    const float ext = zh - zl;
+    const float slack = T_REL * (fabsf(zl) + fabsf(zh));
+    const float lower = (zl - ext) - slack;
+    const float upper = (zh + ext) + slack;
+    if (!(lower < gate && upper > r.tmin)) return false;
+    if (n_ok) return true;  // the wide box holds the narrow one
+    if (!line_meets(s.wbox[b], r, n, f)) return false;
+    // edge-on: |normal . d| < (K + (B + G E) E) |d| for one triangle
+    const float e = EPS_E * (s.geo[b][3] + r.mo);
+    const float thr =
+        (s.geo[b][0] + (s.geo[b][1] + s.geo[b][2] * e) * e) * r.dn;
+    const int kend = min(b * TRI_BLOCK + TRI_BLOCK, count);
+    bool edge_on = false;
+    for (int k = b * TRI_BLOCK; k < kend; ++k)
+        edge_on |= !(fabsf(dot3(s.nrm[k][0], s.nrm[k][1], s.nrm[k][2], r.dx,
+                                r.dy, r.dz)) >= thr);
+    return edge_on;
+}
+
+// Position of the n-th (from 0) set bit of m; m has more than n set bits.
+static __device__ __forceinline__ int nth_set_bit(unsigned int m, int n) {
+    int pos = 0;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1)
+        if (__popc(m & ((1u << (pos + w)) - 1u)) <= n) pos += w;
+    return pos;
+}
+
+// Lane src's shear basis, to every thread of the warp.
+static __device__ __forceinline__ WtRay shfl_ray(const WtRay& w, int src) {
+    WtRay r;
+    r.rx0 = __shfl_sync(FULL_MASK, w.rx0, src);
+    r.rx1 = __shfl_sync(FULL_MASK, w.rx1, src);
+    r.rx2 = __shfl_sync(FULL_MASK, w.rx2, src);
+    r.ry0 = __shfl_sync(FULL_MASK, w.ry0, src);
+    r.ry1 = __shfl_sync(FULL_MASK, w.ry1, src);
+    r.ry2 = __shfl_sync(FULL_MASK, w.ry2, src);
+    r.rz0 = __shfl_sync(FULL_MASK, w.rz0, src);
+    r.rz1 = __shfl_sync(FULL_MASK, w.rz1, src);
+    r.rz2 = __shfl_sync(FULL_MASK, w.rz2, src);
+    r.rxo = __shfl_sync(FULL_MASK, w.rxo, src);
+    r.ryo = __shfl_sync(FULL_MASK, w.ryo, src);
+    r.rzo = __shfl_sync(FULL_MASK, w.rzo, src);
+    r.degenerate = __shfl_sync(FULL_MASK, (int)w.degenerate, src) != 0;
     return r;
 }
 
-#define TRI_ARGS(s, k)                                                       \
-    s.tri[k][0], s.tri[k][1], s.tri[k][2], s.tri[k][3], s.tri[k][4],        \
-        s.tri[k][5], s.tri[k][6], s.tri[k][7], s.tri[k][8]
+#define CORNERS(s, k)                                                        \
+    s.c[k][0], s.c[k][1], s.c[k][2], s.c[k][3], s.c[k][4], s.c[k][5],       \
+        s.c[k][6], s.c[k][7], s.c[k][8]
 
-__global__ void dense_closest_kernel(
-    const float* __restrict__ tri_verts, const int* __restrict__ prim_object,
-    const int* __restrict__ obj_vis, int P, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ tmin_a,
-    const float* __restrict__ tmax_a, const int* __restrict__ vis_a, int n,
-    float* __restrict__ t_out, int* __restrict__ prim_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ obj_out) {
+// The render modes' arguments (one struct: the kernel takes them by value)
+struct DenseArgs {
+    const float* tri_verts;
+    const int* prim_object;
+    const int* obj_vis;               // null: no visibility masks
+    const unsigned char* boundary;    // dual
+    int P;
+    const float* o;
+    const float* d;
+    const float* tmin;
+    const float* tmax;                // dual: tmax of the closest window
+    const float* tmax_any;            // dual
+    const int* vis;                   // dual: the closest window's
+    const int* vis_any;               // dual
+    int n;
+    int rounds;                       // 128-lane rounds per block
+    float* t;                         // dual: t_boundary
+    int* prim;
+    float* u;
+    float* v;
+    int* obj;
+    float* t_other;                   // dual
+    unsigned char* blocked;           // any, dual
+    int* counts;
+};
+
+template <int MODE>
+static __device__ __forceinline__ bool lane_live(const DenseArgs& a, int i) {
+    const float tmin = a.tmin[i];
+    if (MODE == MODE_CLOSEST) return fminf(a.tmax[i], RT_RAY_TMAX) > tmin;
+    if (MODE == MODE_ANY) return a.tmax[i] > tmin;
+    return a.tmax[i] > tmin || a.tmax_any[i] > tmin;
+}
+
+// The result of a lane whose window is empty (the plain version's).
+template <int MODE, bool COUNT>
+static __device__ __forceinline__ void write_empty(const DenseArgs& a,
+                                                   int i) {
+    if (MODE == MODE_CLOSEST) {
+        a.t[i] = fminf(a.tmax[i], RT_RAY_TMAX);
+        a.prim[i] = -1;
+        a.u[i] = 0.0f;
+        a.v[i] = 0.0f;
+        a.obj[i] = -1;
+    } else if (MODE == MODE_ANY) {
+        a.blocked[i] = 0;
+    } else {
+        a.t[i] = RT_RAY_TMAX;
+        a.t_other[i] = RT_RAY_TMAX;
+        a.blocked[i] = 0;
+    }
+    if (COUNT) {
+        a.counts[3 * i] = 0;
+        a.counts[3 * i + 1] = 0;
+        a.counts[3 * i + 2] = 0;
+    }
+}
+
+template <int MODE, bool COUNT>
+__global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
     __shared__ StagedTris s;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool live = i < n;
-    const Ray r = load_ray(o, d, tmin_a, i, live);
-    const float t0 = fminf(live ? tmax_a[i] : -1.0f, RT_RAY_TMAX);
-    const int vis = (live && vis_a) ? vis_a[i] : 0;
-    float bt = t0, bu = 0.0f, bv = 0.0f;
-    int bp = -1;
-    for (int base = 0; base < P; base += STAGE) {
-        const int count = min(STAGE, P - base);
-        __syncthreads();  // every thread is done with the previous stage
-        stage_tris(s, tri_verts, prim_object, obj_vis, nullptr, base, count);
-        __syncthreads();
-        for (int b = 0; b < count; b += TRI_BLOCK) {
-            float tk = RT_RAY_TMAX, uk = 0.0f, vk = 0.0f;
-            int kk = -1;
-            const int kend = min(b + TRI_BLOCK, count);
-            for (int k = b; k < kend; ++k) {
-                if (s.obj[k] < 0) continue;
-                if (vis_a && (s.vis[k] & vis) == 0) continue;
-                float t, u, v;
-                if (!wt_tri_v(r.w, TRI_ARGS(s, k), r.tmin, bt, &t, &u, &v))
+    __shared__ int wcount[MAX_ROUNDS * WARPS];
+    __shared__ int live_list[MAX_ROUNDS * BLOCK];
+    const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+
+    // ---- gather the lanes with a window, in lane order ----
+    const int base = blockIdx.x * a.rounds * BLOCK;
+    unsigned int ballot[MAX_ROUNDS];
+#pragma unroll
+    for (int r = 0; r < MAX_ROUNDS; ++r) {
+        const int i = base + r * BLOCK + tid;
+        const bool in = r < a.rounds && i < a.n;
+        const bool live = in && lane_live<MODE>(a, i);
+        if (in && !live) write_empty<MODE, COUNT>(a, i);
+        ballot[r] = __ballot_sync(FULL_MASK, live);
+        if (wl == 0) wcount[r * WARPS + warp] = __popc(ballot[r]);
+    }
+    __syncthreads();
+    int nlive = 0, offset[MAX_ROUNDS];
+#pragma unroll
+    for (int slot = 0; slot < MAX_ROUNDS * WARPS; ++slot) {
+        if (slot % WARPS == warp) offset[slot / WARPS] = nlive;
+        nlive += wcount[slot];
+    }
+#pragma unroll
+    for (int r = 0; r < MAX_ROUNDS; ++r)
+        if ((ballot[r] >> wl) & 1u)
+            live_list[offset[r] + __popc(ballot[r] & ((1u << wl) - 1u))] =
+                base + r * BLOCK + tid;
+    __syncthreads();
+
+    const bool use_vis = a.obj_vis != nullptr && a.vis != nullptr;
+    for (int r0 = 0; r0 < nlive; r0 += BLOCK) {
+        const bool act = r0 + tid < nlive;
+        const int i = act ? live_list[r0 + tid] : 0;
+        const float ox = act ? a.o[3 * i] : 0.0f,
+                    oy = act ? a.o[3 * i + 1] : 0.0f,
+                    oz = act ? a.o[3 * i + 2] : 0.0f;
+        const float dx = act ? a.d[3 * i] : 1.0f,
+                    dy = act ? a.d[3 * i + 1] : 0.0f,
+                    dz = act ? a.d[3 * i + 2] : 0.0f;
+        const float tmin = act ? a.tmin[i] : 0.0f;
+        const WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
+        const CullRay cr = cull_ray(ox, oy, oz, dx, dy, dz, tmin);
+        const float tmax = act ? a.tmax[i] : -1.0f;
+        const float tmax_any =
+            (MODE == MODE_DUAL && act) ? a.tmax_any[i] : -1.0f;
+        const int vis = (act && a.vis) ? a.vis[i] : 0;
+        const int vis_any = (MODE == MODE_DUAL && act) ? a.vis_any[i] : 0;
+        // closest: the best hit; dual: t_boundary in bt, t_other in bo_t
+        const float t0 = fminf(tmax, RT_RAY_TMAX);
+        float bt = MODE == MODE_CLOSEST ? t0 : RT_RAY_TMAX, bu = 0.0f,
+              bv = 0.0f, bo_t = RT_RAY_TMAX;
+        int bp = -1;
+        bool blocked = false;
+        int tested = 0, kept = 0, unions = 0;
+        for (int pbase = 0; pbase < a.P; pbase += STAGE) {
+            const int count = min(STAGE, a.P - pbase);
+            stage_tris(s, a.tri_verts, a.prim_object, a.obj_vis,
+                       MODE == MODE_DUAL ? a.boundary : nullptr, pbase,
+                       count);
+            const int nb = (count + TRI_BLOCK - 1) / TRI_BLOCK;
+            for (int b = 0; b < nb; ++b) {
+                if (MODE == MODE_ANY &&
+                    __all_sync(FULL_MASK, !act || blocked))
+                    break;
+                float gate;
+                int mask = vis;
+                if (MODE == MODE_CLOSEST) {
+                    gate = bt;
+                } else if (MODE == MODE_ANY) {
+                    gate = blocked ? -RT_INF : tmax;
+                } else {
+                    gate = fmaxf(fminf(fmaxf(bt, bo_t), tmax),
+                                 blocked ? -RT_INF : tmax_any);
+                    mask = vis | vis_any;
+                }
+                const bool vis_ok =
+                    (MODE != MODE_DUAL && !use_vis) || (s.bvis[b] & mask) != 0;
+                const bool keep = act && vis_ok &&
+                                  keep_block(s, b, count, cr, gate);
+                const unsigned int km = __ballot_sync(FULL_MASK, keep);
+                if (COUNT) {
+                    kept += keep ? 1 : 0;
+                    unions += km ? 1 : 0;
+                }
+                if (km == 0u) continue;
+                const int kend = min(b * TRI_BLOCK + TRI_BLOCK, count);
+                const int nk = __popc(km);
+                if (nk <= SPREAD_MAX) {
+                    // ---- the block's (lane, triangle) tests over the warp:
+                    // pair j tests triangle j % 8 for the (j / 8)-th lane
+                    // that keeps the block; each group of 8 threads then
+                    // reduces its lane's 8 results by the mode's rule, and
+                    // the lane takes them ----
+                    if (COUNT && keep)
+                        for (int k = b * TRI_BLOCK; k < kend; ++k)
+                            if (s.obj[k] >= 0 &&
+                                (MODE == MODE_DUAL || !use_vis ||
+                                 (s.vis[k] & vis) != 0))
+                                ++tested;
+                    const int slot = __popc(km & ((1u << wl) - 1u));
+                    for (int j0 = 0; j0 < nk * TRI_BLOCK; j0 += 32) {
+                        const int j = j0 + wl;
+                        const int src = nth_set_bit(
+                            km, min(j / TRI_BLOCK, nk - 1));
+                        const WtRay ws = shfl_ray(w, src);
+                        const float s_tmin = __shfl_sync(FULL_MASK, tmin, src);
+                        const float s_tmax = __shfl_sync(FULL_MASK, tmax, src);
+                        const int s_vis = __shfl_sync(FULL_MASK, vis, src);
+                        const int k = b * TRI_BLOCK + j % TRI_BLOCK;
+                        const bool pair = j < nk * TRI_BLOCK && k < kend &&
+                                          s.obj[k] >= 0;
+                        const int from = slot * TRI_BLOCK - j0;
+                        const bool mine = keep && from >= 0 && from < 32;
+                        const int fsrc = mine ? from : 0;
+                        float t, u, v;
+                        if (MODE == MODE_CLOSEST) {
+                            const float s_bt = __shfl_sync(FULL_MASK, bt, src);
+                            float tk = RT_RAY_TMAX, uk = 0.0f, vk = 0.0f;
+                            int kk = -1;
+                            if (pair && (!use_vis || (s.vis[k] & s_vis) != 0) &&
+                                wt_tri_c(ws, CORNERS(s, k), s_tmin, s_bt, &t,
+                                         &u, &v)) {
+                                tk = t; kk = k; uk = u; vk = v;
+                            }
+                            // the block-of-8 rule: the smallest t; among
+                            // ties the highest index, u and v each the
+                            // largest (order free)
+#pragma unroll
+                            for (int off = TRI_BLOCK / 2; off > 0; off >>= 1) {
+                                const float ot = __shfl_xor_sync(FULL_MASK, tk, off);
+                                const int ok = __shfl_xor_sync(FULL_MASK, kk, off);
+                                const float ou = __shfl_xor_sync(FULL_MASK, uk, off);
+                                const float ov = __shfl_xor_sync(FULL_MASK, vk, off);
+                                if (ot < tk) {
+                                    tk = ot; kk = ok; uk = ou; vk = ov;
+                                } else if (ot == tk) {
+                                    kk = max(kk, ok);
+                                    uk = fmaxf(uk, ou);
+                                    vk = fmaxf(vk, ov);
+                                }
+                            }
+                            tk = __shfl_sync(FULL_MASK, tk, fsrc);
+                            kk = __shfl_sync(FULL_MASK, kk, fsrc);
+                            uk = __shfl_sync(FULL_MASK, uk, fsrc);
+                            vk = __shfl_sync(FULL_MASK, vk, fsrc);
+                            if (mine && tk < bt) {
+                                bt = tk; bp = pbase + kk; bu = uk; bv = vk;
+                            }
+                        } else if (MODE == MODE_ANY) {
+                            const bool hit =
+                                pair && (!use_vis || (s.vis[k] & s_vis) != 0) &&
+                                wt_tri_c(ws, CORNERS(s, k), s_tmin, s_tmax, &t,
+                                         &u, &v);
+                            const unsigned int hm = __ballot_sync(FULL_MASK, hit);
+                            if (mine && ((hm >> from) & 0xFFu) != 0u)
+                                blocked = true;
+                        } else {
+                            const float s_tmax_any =
+                                __shfl_sync(FULL_MASK, tmax_any, src);
+                            const int s_vis_any =
+                                __shfl_sync(FULL_MASK, vis_any, src);
+                            float tb = RT_RAY_TMAX, to = RT_RAY_TMAX;
+                            bool hit_any = false;
+                            if (pair && wt_tri_c(ws, CORNERS(s, k), s_tmin,
+                                                 RT_RAY_TMAX, &t, &u, &v)) {
+                                hit_any = t < s_tmax_any &&
+                                          (s.vis[k] & s_vis_any) != 0;
+                                if (t < s_tmax && (s.vis[k] & s_vis) != 0) {
+                                    if (s.bnd[k]) tb = t;
+                                    else to = t;
+                                }
+                            }
+#pragma unroll
+                            for (int off = TRI_BLOCK / 2; off > 0; off >>= 1) {
+                                tb = fminf(tb, __shfl_xor_sync(FULL_MASK, tb, off));
+                                to = fminf(to, __shfl_xor_sync(FULL_MASK, to, off));
+                            }
+                            tb = __shfl_sync(FULL_MASK, tb, fsrc);
+                            to = __shfl_sync(FULL_MASK, to, fsrc);
+                            const unsigned int hm =
+                                __ballot_sync(FULL_MASK, hit_any);
+                            if (mine) {
+                                bt = fminf(bt, tb);
+                                bo_t = fminf(bo_t, to);
+                                if (((hm >> from) & 0xFFu) != 0u) blocked = true;
+                            }
+                        }
+                    }
                     continue;
-                if (t < tk) {
-                    tk = t; kk = k; uk = u; vk = v;
-                } else if (t == tk) {
-                    kk = k; uk = fmaxf(uk, u); vk = fmaxf(vk, v);
+                }
+                if (!keep) continue;
+                if (MODE == MODE_CLOSEST) {
+                    float tk = RT_RAY_TMAX, uk = 0.0f, vk = 0.0f;
+                    int kk = -1;
+                    for (int k = b * TRI_BLOCK; k < kend; ++k) {
+                        if (s.obj[k] < 0) continue;
+                        if (use_vis && (s.vis[k] & vis) == 0) continue;
+                        if (COUNT) ++tested;
+                        float t, u, v;
+                        if (!wt_tri_c(w, CORNERS(s, k), tmin, bt, &t, &u, &v))
+                            continue;
+                        if (t < tk) {
+                            tk = t; kk = k; uk = u; vk = v;
+                        } else if (t == tk) {
+                            kk = k; uk = fmaxf(uk, u); vk = fmaxf(vk, v);
+                        }
+                    }
+                    if (tk < bt) {
+                        bt = tk; bp = pbase + kk; bu = uk; bv = vk;
+                    }
+                } else if (MODE == MODE_ANY) {
+                    for (int k = b * TRI_BLOCK; k < kend; ++k) {
+                        if (s.obj[k] < 0) continue;
+                        if (use_vis && (s.vis[k] & vis) == 0) continue;
+                        if (COUNT) ++tested;
+                        float t, u, v;
+                        if (wt_tri_c(w, CORNERS(s, k), tmin, tmax, &t, &u,
+                                     &v)) {
+                            blocked = true;
+                            break;
+                        }
+                    }
+                } else {
+                    for (int k = b * TRI_BLOCK; k < kend; ++k) {
+                        if (s.obj[k] < 0) continue;
+                        if (COUNT) ++tested;
+                        float t, u, v;
+                        if (!wt_tri_c(w, CORNERS(s, k), tmin, RT_RAY_TMAX, &t,
+                                      &u, &v))
+                            continue;
+                        if (t < tmax_any && (s.vis[k] & vis_any) != 0)
+                            blocked = true;
+                        if (t < tmax && (s.vis[k] & vis) != 0) {
+                            if (s.bnd[k]) bt = fminf(bt, t);
+                            else bo_t = fminf(bo_t, t);
+                        }
+                    }
                 }
             }
-            if (tk < bt) {
-                bt = tk; bp = base + kk; bu = uk; bv = vk;
-            }
+        }
+        if (!act) continue;
+        if (MODE == MODE_CLOSEST) {
+            const bool hit = bt < t0 && bp >= 0;
+            a.t[i] = bt;
+            a.prim[i] = hit ? bp : -1;
+            a.u[i] = bu;
+            a.v[i] = bv;
+            a.obj[i] = hit ? a.prim_object[bp] : -1;
+        } else if (MODE == MODE_ANY) {
+            a.blocked[i] = blocked ? 1 : 0;
+        } else {
+            a.t[i] = bt;
+            a.t_other[i] = bo_t;
+            a.blocked[i] = blocked ? 1 : 0;
+        }
+        if (COUNT) {
+            a.counts[3 * i] = tested;
+            a.counts[3 * i + 1] = kept;
+            a.counts[3 * i + 2] = unions;
         }
     }
-    if (!live) return;
-    const bool hit = bt < t0 && bp >= 0;
-    t_out[i] = bt;
-    prim_out[i] = hit ? bp : -1;
-    u_out[i] = bu;
-    v_out[i] = bv;
-    obj_out[i] = hit ? prim_object[bp] : -1;
-}
-
-__global__ void dense_any_kernel(
-    const float* __restrict__ tri_verts, const int* __restrict__ prim_object,
-    const int* __restrict__ obj_vis, int P, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ tmin_a,
-    const float* __restrict__ tmax_a, const int* __restrict__ vis_a, int n,
-    unsigned char* __restrict__ blocked_out) {
-    __shared__ StagedTris s;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool live = i < n;
-    const Ray r = load_ray(o, d, tmin_a, i, live);
-    const float tmax = live ? tmax_a[i] : -1.0f;
-    const int vis = (live && vis_a) ? vis_a[i] : 0;
-    bool blocked = false;
-    // a lane with an empty window can never be blocked
-    bool warp_done = __all_sync(0xFFFFFFFFu, !(tmax > r.tmin));
-    for (int base = 0; base < P; base += STAGE) {
-        const int count = min(STAGE, P - base);
-        __syncthreads();
-        stage_tris(s, tri_verts, prim_object, obj_vis, nullptr, base, count);
-        __syncthreads();
-        for (int b = 0; b < count && !warp_done; b += TRI_BLOCK) {
-            const int kend = min(b + TRI_BLOCK, count);
-            for (int k = b; k < kend; ++k) {
-                if (s.obj[k] < 0) continue;
-                if (vis_a && (s.vis[k] & vis) == 0) continue;
-                float t, u, v;
-                if (wt_tri_v(r.w, TRI_ARGS(s, k), r.tmin, tmax, &t, &u, &v))
-                    blocked = true;
-            }
-            warp_done = __all_sync(0xFFFFFFFFu, blocked || !(tmax > r.tmin));
-        }
-    }
-    if (live) blocked_out[i] = blocked ? 1 : 0;
-}
-
-__global__ void dense_dual_kernel(
-    const float* __restrict__ tri_verts, const int* __restrict__ prim_object,
-    const int* __restrict__ obj_vis,
-    const unsigned char* __restrict__ boundary, int P,
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ tmin_a, const float* __restrict__ tmaxc_a,
-    const float* __restrict__ tmaxa_a, const int* __restrict__ visc_a,
-    const int* __restrict__ visa_a, int n, float* __restrict__ tb_out,
-    float* __restrict__ to_out, unsigned char* __restrict__ blocked_out) {
-    __shared__ StagedTris s;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool live = i < n;
-    const Ray r = load_ray(o, d, tmin_a, i, live);
-    const float tmaxc = live ? tmaxc_a[i] : -1.0f;
-    const float tmaxa = live ? tmaxa_a[i] : -1.0f;
-    const int visc = live ? visc_a[i] : 0, visa = live ? visa_a[i] : 0;
-    float tb = RT_RAY_TMAX, to = RT_RAY_TMAX;
-    bool blocked = false;
-    for (int base = 0; base < P; base += STAGE) {
-        const int count = min(STAGE, P - base);
-        __syncthreads();
-        stage_tris(s, tri_verts, prim_object, obj_vis, boundary, base, count);
-        __syncthreads();
-        for (int k = 0; k < count; ++k) {
-            if (s.obj[k] < 0) continue;
-            float t, u, v;
-            if (!wt_tri_v(r.w, TRI_ARGS(s, k), r.tmin, RT_RAY_TMAX, &t, &u,
-                          &v))
-                continue;
-            if (t < tmaxa && (s.vis[k] & visa) != 0) blocked = true;
-            if (t < tmaxc && (s.vis[k] & visc) != 0) {
-                if (s.bnd[k]) tb = fminf(tb, t);
-                else to = fminf(to, t);
-            }
-        }
-    }
-    if (!live) return;
-    tb_out[i] = tb;
-    to_out[i] = to;
-    blocked_out[i] = blocked ? 1 : 0;
 }
 
 // Mode mt: the TPU kernel's own arithmetic. v0/e1/e2 are (P, 3) packets
@@ -290,31 +746,60 @@ __global__ void dense_mt_kernel(
     v_out[i] = bv;
 }
 
-#define BLOCK 128
 #define GRID(n) (((n) + BLOCK - 1) / BLOCK)
+
+// Lanes per block of the render modes: one 128-lane round while the grid
+// has fewer than 4 blocks per SM, up to MAX_ROUNDS rounds beyond that (a
+// longer list to compact, fewer re-stagings of the triangles).
+static int rounds_for(int n) {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms <= 0) sms = 132;
+    }
+    const int r = n / (BLOCK * 4 * sms);
+    return r < 1 ? 1 : (r > MAX_ROUNDS ? MAX_ROUNDS : r);
+}
+
+template <int MODE>
+static int launch_dense(DenseArgs a, void* stream) {
+    if (a.n <= 0) return 0;
+    a.rounds = rounds_for(a.n);
+    const int grid = (a.n + a.rounds * BLOCK - 1) / (a.rounds * BLOCK);
+    if (a.counts)
+        dense_kernel<MODE, true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
+    else
+        dense_kernel<MODE, false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int rt_dense_closest(const float* tri_verts, const int* prim_object,
                                 const int* obj_vis, int P, const float* o,
                                 const float* d, const float* tmin,
                                 const float* tmax, const int* vis, int n,
                                 float* t, int* prim, float* u, float* v,
-                                int* obj, void* stream) {
-    if (n <= 0) return 0;
-    dense_closest_kernel<<<GRID(n), BLOCK, 0, (cudaStream_t)stream>>>(
-        tri_verts, prim_object, obj_vis, P, o, d, tmin, tmax, vis, n, t, prim,
-        u, v, obj);
-    return (int)cudaGetLastError();
+                                int* obj, int* counts, void* stream) {
+    DenseArgs a = {};
+    a.tri_verts = tri_verts; a.prim_object = prim_object; a.obj_vis = obj_vis;
+    a.P = P; a.o = o; a.d = d; a.tmin = tmin; a.tmax = tmax; a.vis = vis;
+    a.n = n; a.t = t; a.prim = prim; a.u = u; a.v = v; a.obj = obj;
+    a.counts = counts;
+    return launch_dense<MODE_CLOSEST>(a, stream);
 }
 
 extern "C" int rt_dense_any(const float* tri_verts, const int* prim_object,
                             const int* obj_vis, int P, const float* o,
                             const float* d, const float* tmin,
                             const float* tmax, const int* vis, int n,
-                            unsigned char* blocked, void* stream) {
-    if (n <= 0) return 0;
-    dense_any_kernel<<<GRID(n), BLOCK, 0, (cudaStream_t)stream>>>(
-        tri_verts, prim_object, obj_vis, P, o, d, tmin, tmax, vis, n, blocked);
-    return (int)cudaGetLastError();
+                            unsigned char* blocked, int* counts,
+                            void* stream) {
+    DenseArgs a = {};
+    a.tri_verts = tri_verts; a.prim_object = prim_object; a.obj_vis = obj_vis;
+    a.P = P; a.o = o; a.d = d; a.tmin = tmin; a.tmax = tmax; a.vis = vis;
+    a.n = n; a.blocked = blocked; a.counts = counts;
+    return launch_dense<MODE_ANY>(a, stream);
 }
 
 extern "C" int rt_dense_dual(const float* tri_verts, const int* prim_object,
@@ -323,12 +808,15 @@ extern "C" int rt_dense_dual(const float* tri_verts, const int* prim_object,
                              const float* tmin, const float* tmaxc,
                              const float* tmaxa, const int* visc,
                              const int* visa, int n, float* tb, float* to,
-                             unsigned char* blocked, void* stream) {
-    if (n <= 0) return 0;
-    dense_dual_kernel<<<GRID(n), BLOCK, 0, (cudaStream_t)stream>>>(
-        tri_verts, prim_object, obj_vis, boundary, P, o, d, tmin, tmaxc, tmaxa,
-        visc, visa, n, tb, to, blocked);
-    return (int)cudaGetLastError();
+                             unsigned char* blocked, int* counts,
+                             void* stream) {
+    DenseArgs a = {};
+    a.tri_verts = tri_verts; a.prim_object = prim_object; a.obj_vis = obj_vis;
+    a.boundary = boundary; a.P = P; a.o = o; a.d = d; a.tmin = tmin;
+    a.tmax = tmaxc; a.tmax_any = tmaxa; a.vis = visc; a.vis_any = visa;
+    a.n = n; a.t = tb; a.t_other = to; a.blocked = blocked;
+    a.counts = counts;
+    return launch_dense<MODE_DUAL>(a, stream);
 }
 
 extern "C" int rt_dense_mt(const float* v0, const float* e1, const float* e2,

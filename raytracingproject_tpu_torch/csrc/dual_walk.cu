@@ -6,57 +6,52 @@
 // intersect_clusters_onehot_dual / _onehot_dual_kernel. Same contract as
 // the plain version ops/cluster_intersect.py intersect_clusters_dual (the
 // closest walk on one ray and the any-hit walk on the other; static,
-// single-level tables; no instance or motion rows). A window with
-// tmax <= tmin holds no hit and disables that ray of the lane.
+// single-level tables, C <= 512; no instance or motion rows). A window
+// with tmax <= tmin holds no hit and disables that ray of the lane.
 //
-// What bounds it on the H100: per-lane latency, as K2. Each visit rescans
-// the C <= 512 cluster boxes for both rays (two slab tests a box) and then
-// reads one row from the L2-resident table; what the union saves is the
-// second launch, the second read of a row both rays enter, and the shadow
-// walk's own setup.
+// What bounds it on the H100: per-lane latency, as K2. A lane's visits are
+// serial and each reads one row from the L2-resident table that depends
+// on the visit before; what the union saves over K2 + K3 is the second
+// launch, the second read of a row both rays enter, and the second read
+// of the boxes.
 //
-// Design: K2's, one thread per lane, 128-thread blocks, the C x 6 bounds
-// in shared memory, rows through the read-only path. Every visit forms
-// both rays' packed keys (f32_bits(entry) & ~0x1FF) | cluster_id over the
-// boxes and takes the smallest key that is still live in either queue: a
-// closest key is live while its (truncated) entry is below the best t, an
-// any key while its entry is inside the shadow window and the lane is not
-// blocked. The row is read once and each of its triangles is tested
-// against every ray in whose queue the cluster is live (closest: strict
-// t < best under the ray's visibility; any: latch only), then the cluster
-// is retired from both queues. K2 knows the visited clusters by one "last
-// key" because its keys only grow along the walk; here a cluster's union
-// key is the smaller of two keys and either can drop out (the closest
-// entry once best t tightens, the any queue once the lane is blocked), so
-// a cluster reached through one ray's key could come up again through the
-// other's. Each lane therefore keeps a visited bit per cluster (C / 32
-// words a lane, in shared memory beside the bounds); every visit sets one
-// new bit, so the walk ends within C visits. A queue found empty by a scan
-// stays empty (gates only shrink, bits only get set) and its slab tests
-// are skipped from then on. The TPU kernel's (C, tile) entry tables, its
-// one-hot bf16x3 row fetch and its float liveness scalar are not carried
-// over. It tests a fetched row against both rays whatever queue picked it
-// (its vector lanes pay for the test anyway); a thread that skips the test
-// of a ray whose segment never enters the box saves that time, and the
-// lane's results are those of the two separate walks: the same closest
-// hit except where two triangles tie in t (the visit order picks), the
-// same blocked flag.
+// Design: K2's for each ray (csrc/cluster_walk.cu), one thread per lane,
+// 128-thread blocks, the C x 6 bounds in shared memory, rows through the
+// read-only path. One pass over the C boxes reads each box from shared
+// memory once and fills two sorted register queues (watertight.cuh
+// rt_queue_insert): the K7_QC smallest packed keys of the closest ray
+// above its last visited key, under K2's cull (truncated entry below the
+// best t), and the K7_QA smallest of the any-hit ray above its own last
+// key with an entry inside its window. Each ray notes whether a key fell
+// off its queue. The lane then pops the smaller of the two heads; when
+// both heads name one cluster, its row is read once and tested against
+// both rays. A closest key whose truncated entry has reached the best t
+// is retired as in K2 (with every later key of non-negative entry); the
+// any-hit ray is done at its first blocker. When both queues are dry and
+// a ray has a key that fell off, one more pass refills the queue of each
+// such ray. So the closest ray visits exactly K2's clusters in K2's order
+// (t, u, v, prim and object are K2's, which equal the plain walk's), and
+// the any-hit ray visits clusters of entry inside its window until it is
+// blocked (an order-free flag, equal to the plain walk's). Box tests fall
+// from (visits + 1) x 2C in the earlier design (a rescan of every box for
+// both rays on every visit, with a visited bit per cluster and lane in
+// shared memory) to C per ray and pass.
+//
+// The counting variant (COUNT) also writes per lane the rows it read, the
+// rows read once for both rays, the passes made and the boxes tested,
+// into counts[4 * lane].
+//
+// Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 116 and 121 in the
+// two variants, no spills; chip_smoke.py prints the build log.
 #include "watertight.cuh"
 
-#define ID_BITS 9
-#define ID_MASK ((1u << ID_BITS) - 1u)
 #define DUAL_BLOCK 128
-#define NO_KEY 0xFFFFFFFFu
+// Queue lengths: K2's 8 for the closest ray; the any-hit ray stops at its
+// first blocker (K3 visits 0.87 rows a lane on glossy, PERF.md)
+#define K7_QC 8
+#define K7_QA 8
 
-static __device__ __forceinline__ unsigned int pack_key(float e, int c) {
-    e = e + 0.0f;  // -0.0 -> +0.0 before taking the bits
-    return (__float_as_uint(e) & ~ID_MASK) | (unsigned int)c;
-}
-
-static __device__ __forceinline__ float key_entry(unsigned int key) {
-    return __uint_as_float(key & ~ID_MASK);
-}
-
+template <int QC, int QA, bool COUNT>
 __global__ void dual_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ oc,
@@ -67,13 +62,9 @@ __global__ void dual_walk_kernel(
     const int* __restrict__ visa_a, int n, float* __restrict__ t_out,
     int* __restrict__ prim_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ obj_out,
-    bool* __restrict__ blk_out) {
+    bool* __restrict__ blk_out, int* __restrict__ counts) {
     extern __shared__ float sb[];
-    // visited bits: word w of this thread's lane at seen[w * DUAL_BLOCK + tid]
-    unsigned int* seen = (unsigned int*)(sb + C * 6) + threadIdx.x;
-    const int words = (C + 31) >> 5;
     for (int i = threadIdx.x; i < C * 6; i += blockDim.x) sb[i] = cbounds[i];
-    for (int w = 0; w < words; ++w) seen[w * DUAL_BLOCK] = 0u;
     __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -95,78 +86,113 @@ __global__ void dual_walk_kernel(
     bool blocked = false;
     // the any-hit walk's own gate: entries below min(tmax, RAY_TMAX)
     const float a_gate = fminf(tmaxa, RT_RAY_TMAX);
-    bool c_live = tmaxc > tminc, a_live = tmaxa > tmina;
     const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
               vbase = obase + ct;
-    for (int visit = 0; visit < C && (c_live || a_live); ++visit) {
+    int rows = 0, shared_rows = 0, passes = 0, boxes = 0;
+    long long last_c = -1, last_a = -1;  // last visited key of each ray
+    // a ray needs a pass while a live key of it may lie beyond its queue
+    bool need_c = tmaxc > tminc, need_a = tmaxa > tmina;
+    unsigned int qc[QC], qa[QA];
+    rt_queue_clear(qc);
+    rt_queue_clear(qa);
+    while (need_c || need_a) {
+        // ---- one pass over the boxes, for each ray that needs one ----
+        bool fell_c_pos = false, fell_c_neg = false, fell_a = false;
         const float c_gate = fminf(bt, RT_INF);
-        unsigned int best_c = NO_KEY, best_a = NO_KEY;
-        for (int w = 0; w < words; ++w) {
-            const unsigned int done = seen[w * DUAL_BLOCK];
-            const int c_end = min(C, (w + 1) << 5);
-            for (int c = w << 5; c < c_end; ++c) {
-                if ((done >> (c & 31)) & 1u) continue;
-                if (c_live) {
-                    const float e = slab_entry(sb + 6 * c, cox, coy, coz, cix,
-                                               ciy, ciz, tminc, tmaxc);
-                    if (e < RT_INF) {
-                        const unsigned int key = pack_key(e, c);
-                        if (key_entry(key) < c_gate) best_c = min(best_c, key);
+        for (int c = 0; c < C; ++c) {
+            const float* b = sb + 6 * c;
+            if (need_c) {
+                const float e = slab_entry(b, cox, coy, coz, cix, ciy, ciz,
+                                           tminc, tmaxc);
+                if (e < RT_INF) {
+                    const unsigned int key = rt_pack_key(e, c);
+                    if ((long long)key > last_c && rt_key_entry(key) < c_gate) {
+                        const unsigned int out = rt_queue_insert(qc, key);
+                        if (out != RT_NO_KEY) {
+                            if (out & RT_KEY_NEG)
+                                fell_c_neg = true;
+                            else
+                                fell_c_pos = true;
+                        }
                     }
                 }
-                if (a_live) {
-                    const float e = slab_entry(sb + 6 * c, aox, aoy, aoz, aix,
-                                               aiy, aiz, tmina, tmaxa);
-                    if (e < a_gate) best_a = min(best_a, pack_key(e, c));
+            }
+            if (need_a) {
+                const float e = slab_entry(b, aox, aoy, aoz, aix, aiy, aiz,
+                                           tmina, tmaxa);
+                if (e < a_gate) {
+                    const unsigned int key = rt_pack_key(e, c);
+                    if ((long long)key > last_a &&
+                        rt_queue_insert(qa, key) != RT_NO_KEY)
+                        fell_a = true;
                 }
             }
         }
-        c_live = best_c != NO_KEY;
-        a_live = best_a != NO_KEY;
-        const unsigned int pick = min(best_c, best_a);
-        if (pick == NO_KEY) break;
-        const int c = (int)(pick & ID_MASK);
-        seen[(c >> 5) * DUAL_BLOCK] |= 1u << (c & 31);
-        // the picked cluster may be live in the other ray's queue too
-        bool do_c = c_live, do_a = a_live;
-        if (do_c && (best_c & ID_MASK) != (unsigned int)c) {
-            const float e = slab_entry(sb + 6 * c, cox, coy, coz, cix, ciy, ciz,
-                                       tminc, tmaxc);
-            do_c = e < RT_INF && key_entry(pack_key(e, c)) < c_gate;
+        if (COUNT) {
+            ++passes;
+            boxes += C * ((need_c ? 1 : 0) + (need_a ? 1 : 0));
         }
-        if (do_a && (best_a & ID_MASK) != (unsigned int)c) {
-            const float e = slab_entry(sb + 6 * c, aox, aoy, aoz, aix, aiy, aiz,
-                                       tmina, tmaxa);
-            do_a = e < a_gate;
-        }
-        const float* row = ctable + (size_t)c * W;
-        for (int k = 0; k < ct; ++k) {
-            const float pid = __ldg(row + pbase + k);
-            if (!(pid >= 0.0f)) continue;
-            const int tv = (int)__ldg(row + vbase + k);
-            const bool on_c = do_c && (tv & visc) != 0;
-            const bool on_a = do_a && !blocked && (tv & visa) != 0;
-            if (!on_c && !on_a) continue;
-            const float* tri = row + RT_META_COLS + 9 * k;
-            const float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1),
-                        v0z = __ldg(tri + 2), e1x = __ldg(tri + 3),
-                        e1y = __ldg(tri + 4), e1z = __ldg(tri + 5),
-                        e2x = __ldg(tri + 6), e2y = __ldg(tri + 7),
-                        e2z = __ldg(tri + 8);
-            float t, u, v;
-            if (on_c && wt_tri_v(wc, v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y,
-                                 e2z, tminc, bt, &t, &u, &v)) {
-                bt = t;
-                bp = (int)pid;
-                bu = u;
-                bv = v;
-                bo = (int)__ldg(row + obase + k);
+        // ---- the walk: pop the smaller head until both queues are dry ----
+        for (int it = 0; it < QC + QA; ++it) {
+            const unsigned int hc = qc[0], ha = qa[0];
+            if (hc != RT_NO_KEY && rt_key_entry(hc) >= fminf(bt, RT_INF)) {
+                // retired since the pass; so is every later key of
+                // non-negative entry, including those that fell off
+                rt_queue_pop(qc);
+                if (!(hc & RT_KEY_NEG)) fell_c_pos = false;
+                continue;
             }
-            if (on_a && wt_tri_v(wa, v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y,
-                                 e2z, tmina, a_gate, &t, &u, &v))
-                blocked = true;
+            const unsigned int pick = min(hc, ha);
+            if (pick == RT_NO_KEY) break;
+            const unsigned int cid = pick & RT_KEY_ID_MASK;
+            const bool do_c = hc != RT_NO_KEY && (hc & RT_KEY_ID_MASK) == cid;
+            const bool do_a = ha != RT_NO_KEY && (ha & RT_KEY_ID_MASK) == cid;
+            if (do_c) {
+                rt_queue_pop(qc);
+                last_c = hc;
+            }
+            if (do_a) {
+                rt_queue_pop(qa);
+                last_a = ha;
+            }
+            if (COUNT) {
+                ++rows;
+                if (do_c && do_a) ++shared_rows;
+            }
+            const float* row = ctable + (size_t)cid * W;
+            for (int k = 0; k < ct; ++k) {
+                const float pid = __ldg(row + pbase + k);
+                if (!(pid >= 0.0f)) continue;
+                const int tv = (int)__ldg(row + vbase + k);
+                const bool on_c = do_c && (tv & visc) != 0;
+                const bool on_a = do_a && !blocked && (tv & visa) != 0;
+                if (!on_c && !on_a) continue;
+                const float* tri = row + RT_META_COLS + 9 * k;
+                const float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1),
+                            v0z = __ldg(tri + 2), e1x = __ldg(tri + 3),
+                            e1y = __ldg(tri + 4), e1z = __ldg(tri + 5),
+                            e2x = __ldg(tri + 6), e2y = __ldg(tri + 7),
+                            e2z = __ldg(tri + 8);
+                float t, u, v;
+                if (on_c && wt_tri_v(wc, v0x, v0y, v0z, e1x, e1y, e1z, e2x,
+                                     e2y, e2z, tminc, bt, &t, &u, &v)) {
+                    bt = t;
+                    bp = (int)pid;
+                    bu = u;
+                    bv = v;
+                    bo = (int)__ldg(row + obase + k);
+                }
+                if (on_a && wt_tri_v(wa, v0x, v0y, v0z, e1x, e1y, e1z, e2x,
+                                     e2y, e2z, tmina, a_gate, &t, &u, &v))
+                    blocked = true;
+            }
+            if (blocked && qa[0] != RT_NO_KEY) {
+                rt_queue_clear(qa);
+                fell_a = false;
+            }
         }
-        if (blocked) a_live = false;
+        need_c = fell_c_pos || fell_c_neg;
+        need_a = !blocked && fell_a;
     }
     t_out[i] = bt;
     prim_out[i] = bp;
@@ -174,6 +200,26 @@ __global__ void dual_walk_kernel(
     v_out[i] = bv;
     obj_out[i] = bo;
     blk_out[i] = blocked;
+    if (COUNT) {
+        counts[4 * i] = rows;
+        counts[4 * i + 1] = shared_rows;
+        counts[4 * i + 2] = passes;
+        counts[4 * i + 3] = boxes;
+    }
+}
+
+template <bool COUNT>
+static void launch(int grid, size_t smem, cudaStream_t stream,
+                   const float* cbounds, const float* ctable, int C, int W,
+                   int ct, const float* oc, const float* dc,
+                   const float* tminc, const float* tmaxc, const int* visc,
+                   const float* oa, const float* da, const float* tmina,
+                   const float* tmaxa, const int* visa, int n, float* t,
+                   int* prim, float* u, float* v, int* obj, bool* blocked,
+                   int* counts) {
+    dual_walk_kernel<K7_QC, K7_QA, COUNT><<<grid, DUAL_BLOCK, smem, stream>>>(
+        cbounds, ctable, C, W, ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina,
+        tmaxa, visa, n, t, prim, u, v, obj, blocked, counts);
 }
 
 extern "C" int rt_dual_walk(const float* cbounds, const float* ctable, int C,
@@ -183,13 +229,17 @@ extern "C" int rt_dual_walk(const float* cbounds, const float* ctable, int C,
                             const float* tmina, const float* tmaxa,
                             const int* visa, int n, float* t, int* prim,
                             float* u, float* v, int* obj, bool* blocked,
-                            void* stream) {
+                            int* counts, void* stream) {
     if (n <= 0) return 0;
     const int grid = (n + DUAL_BLOCK - 1) / DUAL_BLOCK;
-    const size_t smem = (size_t)C * 6 * sizeof(float) +
-                        (size_t)((C + 31) / 32) * DUAL_BLOCK * sizeof(unsigned int);
-    dual_walk_kernel<<<grid, DUAL_BLOCK, smem, (cudaStream_t)stream>>>(
-        cbounds, ctable, C, W, ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina,
-        tmaxa, visa, n, t, prim, u, v, obj, blocked);
+    const size_t smem = (size_t)C * 6 * sizeof(float);
+    if (counts)
+        launch<true>(grid, smem, (cudaStream_t)stream, cbounds, ctable, C, W,
+                     ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina, tmaxa,
+                     visa, n, t, prim, u, v, obj, blocked, counts);
+    else
+        launch<false>(grid, smem, (cudaStream_t)stream, cbounds, ctable, C, W,
+                      ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina, tmaxa,
+                      visa, n, t, prim, u, v, obj, blocked, counts);
     return (int)cudaGetLastError();
 }

@@ -62,15 +62,12 @@ static __device__ __forceinline__ void wt_shear(const WtRay& w, float vx,
     *z = w.rz0 * vx + w.rz1 * vy + w.rz2 * vz - w.rzo;
 }
 
-// One triangle given as v0 and the edges e1 = v1 - v0, e2 = v2 - v0 (a
-// cluster row's layout). Returns whether it is hit inside (tmin, tmax),
-// with t and the v1/v2 weights u, v.
-static __device__ __forceinline__ bool wt_tri_v(
-    const WtRay& w, float v0x, float v0y, float v0z, float e1x, float e1y,
-    float e1z, float e2x, float e2y, float e2z, float tmin, float tmax,
+// One triangle given by its corners. Returns whether it is hit inside
+// (tmin, tmax), with t and the v1/v2 weights u, v.
+static __device__ __forceinline__ bool wt_tri_c(
+    const WtRay& w, float v0x, float v0y, float v0z, float v1x, float v1y,
+    float v1z, float v2x, float v2y, float v2z, float tmin, float tmax,
     float* t, float* u, float* v) {
-    const float v1x = v0x + e1x, v1y = v0y + e1y, v1z = v0z + e1z;
-    const float v2x = v0x + e2x, v2y = v0y + e2y, v2z = v0z + e2z;
     float ax, ay, az, bx, by, bz, cx, cy, cz;
     wt_shear(w, v0x, v0y, v0z, &ax, &ay, &az);
     wt_shear(w, v1x, v1y, v1z, &bx, &by, &bz);
@@ -93,6 +90,17 @@ static __device__ __forceinline__ bool wt_tri_v(
     *u = fminf(fmaxf(w_b * inv, 0.0f), 1.0f);
     *v = fminf(fmaxf(w_c * inv, 0.0f), 1.0f);
     return sign_ok && det_ok && tt > tmin && tt < tmax && !w.degenerate;
+}
+
+// One triangle given as v0 and the edges e1 = v1 - v0, e2 = v2 - v0 (a
+// cluster row's layout): the corners are rebuilt as v0 + e, which decides
+// their last bit, as in the plain version.
+static __device__ __forceinline__ bool wt_tri_v(
+    const WtRay& w, float v0x, float v0y, float v0z, float e1x, float e1y,
+    float e1z, float e2x, float e2y, float e2z, float tmin, float tmax,
+    float* t, float* u, float* v) {
+    return wt_tri_c(w, v0x, v0y, v0z, v0x + e1x, v0y + e1y, v0z + e1z,
+                    v0x + e2x, v0y + e2y, v0z + e2z, tmin, tmax, t, u, v);
 }
 
 // wt_tri_v on tri = [v0(3), e1(3), e2(3)] in global memory (a row of the
@@ -157,4 +165,56 @@ static __device__ __forceinline__ float warp_pick(const float* e, int count,
     }
     *idx = mc;
     return m;
+}
+
+// ---- packed cluster keys and the per-lane key queue (K2, K7) ----
+//
+// A lane visits its clusters by the packed key
+// (f32_bits(entry) & ~0x1FF) | cluster_id, smallest first: keys are unique
+// (the id breaks ties), and order like the entries (9 truncated mantissa
+// bits only coarsen the order). A negative entry sorts after every
+// non-negative one.
+#define RT_KEY_ID_BITS 9
+#define RT_KEY_ID_MASK ((1u << RT_KEY_ID_BITS) - 1u)
+#define RT_KEY_NEG 0x80000000u  // sign bit of the entry: a negative entry
+#define RT_NO_KEY 0xFFFFFFFFu   // an empty queue slot (no key reaches it)
+
+static __device__ __forceinline__ unsigned int rt_pack_key(float e, int c) {
+    e = e + 0.0f;  // -0.0 -> +0.0 before taking the bits
+    return (__float_as_uint(e) & ~RT_KEY_ID_MASK) | (unsigned int)c;
+}
+
+static __device__ __forceinline__ float rt_key_entry(unsigned int key) {
+    return __uint_as_float(key & ~RT_KEY_ID_MASK);
+}
+
+// Insert key into the sorted queue q of Q registers (a fully unrolled
+// insertion network over fixed registers: no array indexed at run time,
+// so nothing goes to local memory). Returns the key that falls off the
+// end: q's former last key, key itself when it is not smaller, or
+// RT_NO_KEY.
+template <int Q>
+static __device__ __forceinline__ unsigned int rt_queue_insert(
+    unsigned int (&q)[Q], unsigned int key) {
+    if (!(key < q[Q - 1])) return key;
+    const unsigned int out = q[Q - 1];
+#pragma unroll
+    for (int j = Q - 1; j > 0; --j)
+        q[j] = key < q[j - 1] ? q[j - 1] : (key < q[j] ? key : q[j]);
+    q[0] = key < q[0] ? key : q[0];
+    return out;
+}
+
+// Drop the queue's head.
+template <int Q>
+static __device__ __forceinline__ void rt_queue_pop(unsigned int (&q)[Q]) {
+#pragma unroll
+    for (int k = 0; k < Q - 1; ++k) q[k] = q[k + 1];
+    q[Q - 1] = RT_NO_KEY;
+}
+
+template <int Q>
+static __device__ __forceinline__ void rt_queue_clear(unsigned int (&q)[Q]) {
+#pragma unroll
+    for (int k = 0; k < Q; ++k) q[k] = RT_NO_KEY;
 }

@@ -59,21 +59,21 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P]},
     # cbounds ctable C W ct | o d tmin tmax vis of the closest ray | the
-    # same of the any-hit ray | n t prim u v obj blocked stream
+    # same of the any-hit ray | n t prim u v obj blocked counts stream
     "dual_walk.cu": {"rt_dual_walk": [
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-        _P, _P, _P, _P, _P, _P, _P]},
+        _P, _P, _P, _P, _P, _P, _P, _P]},
     "dense_sweep.cu": {
         # tri_verts prim_object obj_vis P o d tmin tmax vis n t prim u v obj
-        # stream
+        # counts stream (counts: (N, 3) int32 or null, as K2's)
         "rt_dense_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                             _P, _P, _P, _P, _P, _P],
-        # ... n blocked stream
-        "rt_dense_any": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P],
+        # ... n blocked counts stream
+        "rt_dense_any": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
         # tri_verts prim_object obj_vis boundary P o d tmin tmaxc tmaxa visc
-        # visa n tb to blocked stream
+        # visa n tb to blocked counts stream
         "rt_dense_dual": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _P, _P, _P, _P],
+                          _I, _P, _P, _P, _P, _P],
         # v0 e1 e2 P o d tmin tmax n t prim u v stream
         "rt_dense_mt": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                         _P]},

@@ -306,3 +306,171 @@ def test_dense_sweep_kernel(kg_cornell, kg_volume, scene, mode):
             assert torch.equal(got[k], ref[k]), k
     torch.cuda.synchronize()
     assert k1.launches[mode] == before + 1
+
+
+def _dense_args(kg, mode, o, d, tmin, seed):
+    """K1's arguments in `mode` on the scene's dense arrays, mixed per-lane
+    visibility (a planted boundary mask where the scene has none)."""
+    ds = kg["dscene"]
+    tv, po, ov = ds["tri_verts_world"], ds["prim_object_packed"], \
+        ds["object_visibility"]
+    n = o.shape[0]
+    r = np.random.default_rng(seed)
+    tmax_any = torch.tensor(np.where(r.uniform(size=n) < 0.5,
+                                     r.uniform(10, 800, n), 1e30)
+                            .astype(np.float32), device="cuda")
+    vis = torch.tensor(np.array([1, 8, 16, 4, 128], np.int32)[
+        r.integers(0, 5, n)], device="cuda")
+    if mode == "closest":
+        return (tv, po, o, d, tmin, torch.full((n,), 1e30, device="cuda"),
+                vis, ov)
+    if mode == "any":
+        return tv, po, o, d, tmin, tmax_any, vis, ov
+    bnd = ds["prim_is_boundary"]
+    if not bool(bnd.any()):
+        bnd = torch.tensor(r.uniform(size=len(po)) < 0.3, device="cuda")
+    tmax_c = torch.tensor(r.uniform(10, 1000, n).astype(np.float32),
+                          device="cuda")
+    return (tv, po, bnd, o, d, tmin, tmax_c, tmax_any, vis,
+            torch.full((n,), 128, dtype=torch.int32, device="cuda"), ov)
+
+
+K1_WRAPPER = {"closest": (k1.intersect_brute_sweep, isect.intersect_brute),
+              "any": (k1.shadow_blocked_sweep, isect.shadow_blocked_brute),
+              "dual": (k1.occlusion_sweep, isect.intersect_brute_occlusion)}
+
+
+def _outputs(x):
+    return list(x.values()) if isinstance(x, dict) else (
+        list(x) if isinstance(x, tuple) else [x])
+
+
+@pytest.mark.parametrize("scene", ["cornell", "volume_sss"])
+@pytest.mark.parametrize("mode", ["closest", "any", "dual"])
+def test_dense_sweep_kernel_grazing(kg_cornell, kg_volume, scene, mode):
+    """K1's render modes on the grazing set (ops/dense_sweep.py
+    grazing_rays), where the cull's pads are tightest: every output equal
+    to the plain version's to the bit."""
+    kg = kg_cornell if scene == "cornell" else kg_volume
+    o, d, tmin = k1.grazing_rays(kg["dscene"]["tri_verts_world"], N, 12)
+    args = _dense_args(kg, mode, o, d, tmin, 13)
+    kern, plain = K1_WRAPPER[mode]
+    got, ref = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    hit = ref["prim"] >= 0 if mode == "closest" else _outputs(ref)[-1]
+    assert bool(hit.any())
+    for a, b in zip(_outputs(got), _outputs(ref)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", ["cornell", "volume_sss"])
+@pytest.mark.parametrize("mode", ["closest", "any", "dual"])
+def test_dense_sweep_kernel_edge_on(kg_cornell, kg_volume, scene, mode):
+    """K1's render modes on rays nearly along the triangles' edges
+    (ops/dense_sweep.py edge_rays), where the watertight test accepts
+    farthest outside a triangle: every output equal to the plain
+    version's to the bit."""
+    kg = kg_cornell if scene == "cornell" else kg_volume
+    o, d, tmin = k1.edge_rays(kg["dscene"]["tri_verts_world"], N, 14)
+    args = _dense_args(kg, mode, o, d, tmin, 15)
+    kern, plain = K1_WRAPPER[mode]
+    got, ref = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    hit = ref["prim"] >= 0 if mode == "closest" else _outputs(ref)[-1]
+    assert bool(hit.any())
+    for a, b in zip(_outputs(got), _outputs(ref)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rays", ["random", "camera"])
+def test_dual_walk_closest_to_the_bit(kg, rays):
+    """K7's closest ray visits K2's clusters in K2's order: its t, u, v,
+    prim and object equal the plain walk's to the bit on every lane, ties
+    included; blocked equal."""
+    ds = kg["dscene"]
+    tabs = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"])
+    if rays == "random":
+        o, d, _tmax_any, _ = _rays(14)
+        r = np.random.default_rng(15)
+        vis_c = torch.tensor(np.array([1, 8, 16], np.int32)[
+            r.integers(0, 3, N)], device="cuda")
+        tmin = torch.full((N,), 1e-4, device="cuda")
+    else:
+        side = 256
+        from raytracingproject_tpu_torch.ops import camera as cam_ops
+        cam = dict(kg["cam"])
+        yy, xx = np.mgrid[0:side, 0:side]
+        rx = torch.tensor((xx.reshape(-1) + 0.5) * cam["width"] / side,
+                          dtype=torch.float32, device="cuda")
+        ry = torch.tensor((yy.reshape(-1) + 0.5) * cam["height"] / side,
+                          dtype=torch.float32, device="cuda")
+        z = torch.zeros_like(rx)
+        ray = cam_ops.camera_sample_ray(cam, rx, ry, z, z, z)
+        o, d = ray["o"].contiguous(), ray["d"].contiguous()
+        vis_c = torch.ones(N, dtype=torch.int32, device="cuda")
+        tmin = torch.zeros(N, device="cuda")
+    # the any-hit rays leave the closest rays' first hits toward the lamp
+    first = ci.intersect_clusters(*tabs, o, d, tmin,
+                                  torch.full((N,), 1e30, device="cuda"),
+                                  torch.ones(N, dtype=torch.int32,
+                                             device="cuda"))
+    p = o + torch.clamp(first["t"], max=2000.0)[:, None] * d
+    to_l = torch.tensor([278.0, 548.0, 279.0], device="cuda") - p
+    o_a = (p + 0.05 * to_l / to_l.norm(dim=-1, keepdim=True)).contiguous()
+    to_l = torch.tensor([278.0, 548.0, 279.0], device="cuda") - o_a
+    dist = to_l.norm(dim=-1)
+    d_a = (to_l / dist[:, None]).contiguous()
+    args = (*tabs, o, d, tmin, torch.full((N,), 1e30, device="cuda"), vis_c,
+            o_a, d_a, torch.full((N,), 1e-4, device="cuda"),
+            (dist * 0.999).contiguous(),
+            torch.full((N,), 128, dtype=torch.int32, device="cuda"))
+    got, blk = k7.intersect_clusters_dual_walk(*args)
+    ref, rblk = ci.intersect_clusters_dual(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(blk, rblk) and bool(blk.any())
+    assert (ref["prim"] >= 0).float().mean().item() > 0.05
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("kernel", ["closest", "any", "dual", "K7"])
+def test_counting_variants_keep_the_outputs(kg, kg_volume, kernel):
+    """counts=True runs the counting variant: the same outputs as the
+    plain launch, and counts of the shape and sense the wrappers state."""
+    o, d, _tmax_any, _ = _rays(16)
+    if kernel == "K7":
+        ds = kg["dscene"]
+        tmin = torch.full((N,), 1e-4, device="cuda")
+        big = torch.full((N,), 1e30, device="cuda")
+        vis = torch.ones(N, dtype=torch.int32, device="cuda")
+        args = (ds["cluster_bounds"], ds["cluster_table"],
+                kg["cluster_tris"], o, d, tmin, big, vis, o, d, tmin,
+                torch.full((N,), 300.0, device="cuda"), vis)
+        ref = k7.intersect_clusters_dual_walk(*args)
+        *got, cnt = k7.intersect_clusters_dual_walk(*args, counts=True)
+        width, c = 4, int(ds["cluster_bounds"].shape[0])
+    else:
+        tmin = torch.full((N,), 1e-4, device="cuda")
+        args = _dense_args(kg_volume, kernel, o, d, tmin, 17)
+        kern = K1_WRAPPER[kernel][0]
+        ref = kern(*args)
+        out = kern(*args, counts=True)
+        got, cnt = (out[:3], out[3]) if kernel == "dual" else out
+        width = 3
+    torch.cuda.synchronize()
+    for a, b in zip(_outputs(got if kernel != "K7" else tuple(got)),
+                    _outputs(ref)):
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        else:
+            assert torch.equal(a, b)
+    assert cnt.shape == (N, width) and cnt.dtype == torch.int32
+    assert bool((cnt >= 0).all()) and bool((cnt[:, 0] > 0).any())
+    if kernel == "K7":
+        # one pass at least per lane, at most C boxes per ray and pass
+        assert bool((cnt[:, 2] >= 1).all())
+        assert bool((cnt[:, 3] <= cnt[:, 2] * 2 * c).all())
+        assert bool((cnt[:, 1] <= cnt[:, 0]).all())
+    else:
+        # the warp keeps at least what each of its lanes keeps
+        assert bool((cnt[:, 2] >= cnt[:, 1]).all())
