@@ -17,7 +17,9 @@ glossy_nee_mis (the Cornell box with a GGX sphere; K2 and K3):
    any hit, K3 in its surface form and in its dual form (with a seeded
    random volume-boundary table planted, so both minima are exercised),
    and K4 closest and any hit (C = 179), on 65,536 random rays and 65,536
-   camera rays;
+   camera rays; K4's five outputs equal to its scan-order mirror's
+   (ops/tile_walk.py tile_scan_order: the warp's visit order) on every
+   lane, ties included;
 4. accuracy: 64x64, 128 spp, chunk 16, clamp off, rendered on the card
    and held against the float64 twin render artifacts/twin_f64.npz (rmse
    <= 5.7e-5, <= 0.07% of pixels off by more than 1e-3);
@@ -40,8 +42,9 @@ volume_sss (homogeneous smoke and a random-walk SSS sphere in the Cornell
 box, with the dispatch the configuration pins: K4 and K3's dual form):
 
 7. kernels vs plain versions on the volume_sss tables: K4 closest and any
-   hit, K3's dual form with the scene's real volume-boundary table, on
-   65,536 random rays and 65,536 camera rays;
+   hit (and its scan-order mirror, as in 3), K3's dual form with the
+   scene's real volume-boundary table, on 65,536 random rays and 65,536
+   camera rays;
 8. accuracy: 64x64, 128 spp, chunk 16, clamp off, against
    twin_f64.npz["volume_sss"] (rmse <= 1.15e-4, <= 0.15% of pixels off by
    more than 1e-3: twice the JAX package's own float32 render);
@@ -50,9 +53,16 @@ box, with the dispatch the configuration pins: K4 and K3's dual form):
    for the same render (JAX_MEAN_VOL_256), K4 and K3 launched by this
    render; the inputs of each kernel's third call are copied;
 10. main-path shapes: K3's dual form counted on the copied input as in 6;
-   at 65,536 lanes K4 (on the copied input and on camera rays) and K3's
-   dual form (on the copied input, to the bit) are held against their
-   plain versions and both are timed;
+   the counting variant of K4 on the copied input (outputs equal to the
+   plain launch's and to the scan-order mirror's; per lane the steps of
+   its warp, the rows it tested, its box tests and its box passes, equal
+   on every lane to those of the queue-order mirror,
+   ops/tile_walk.py tile_queue_order, with the scan-order mirror's counts
+   of the earlier design beside them); at 65,536 lanes K4 (on the copied
+   input and on camera rays: t, u, v equal to the plain version's to the
+   bit off exact-t ties, every output equal to the scan-order mirror's)
+   and K3's dual form (on the copied input, to the bit) are held against
+   their plain versions and both are timed;
 
 big_instanced (64 instances of one image-textured sphere on a checkered
 ground plane, a distant sun and a constant sky; two-level cluster tables:
@@ -61,7 +71,9 @@ K5 for every closest hit and every NEE shadow test):
 11. kernels vs plain versions on the scene's tables (1,025 clusters in 65
    superclusters, instance rows): K5 closest and any hit on 65,536 random
    rays from inside the scene's bounds and 65,536 camera rays; hit masks
-   equal, max |dt| 0 off exact ties, tie lanes held to an exact tie;
+   equal, max |dt| 0 off exact ties, tie lanes held to an exact tie; every
+   output equal to the scan-order mirror's (ops/cluster2_walk.py
+   cluster2_scan_order) on every lane, ties included;
 12. accuracy: 64x64, 128 spp, chunk 16, clamp off, against the float64
    twin raytracingproject_tpu_torch/data/twin_big_instanced.npz (made
    once on the CPU with the JAX package by tools/rmse_twin.py's method,
@@ -72,10 +84,16 @@ K5 for every closest hit and every NEE shadow test):
    (example:big_instanced); finite, mean within 0.5% of the JAX package's
    mean for the same render (JAX_MEAN_BIG_256), K5 launched by this
    render; the inputs of K5's third call (the second iteration's closest
-   hit) are copied;
-14. main-path shapes: at 65,536 lanes K5 on the copied input (closest) and
-   on sun shadow rays from the camera rays' first hits (any hit) is held
-   against its plain version and both are timed.
+   hit) and of its third any-hit call are copied;
+14. main-path shapes: the counting variant of K5 on both copied inputs
+   (outputs equal to the plain launch's and to the scan-order mirror's;
+   per lane the superclusters its warp entered, the group tables it
+   filled, the rows its warp fetched, the rows it tested, the w2o
+   transforms it computed and its supercluster passes, equal on every
+   lane to cluster2_queue_order's); at 65,536 lanes K5 on the copied
+   inputs and on sun shadow rays from the camera rays' first hits (any
+   hit) is held against its plain version and the scan-order mirror, and
+   both are timed.
 
 cornell_diffuse (the Cornell box with its two boxes, 36 prims: the dense
 sweep K1 for every closest hit and, in its any-hit mode, every NEE shadow
@@ -172,8 +190,9 @@ the JAX package's single-level cap:
 31. a table of 640 clusters x 15 random triangles (K2 and K7 take 512,
    K3 and K4 640) through the integrator's dispatch: the closest hit goes
    to K4 and the occlusion walk to K3, K2 is not launched; both are held
-   against their plain versions on 65,536 random rays (K3 to the bit) and
-   timed.
+   against their plain versions on 65,536 random rays (K3 to the bit, K4
+   to its scan-order mirror on every lane) and timed, and K4's counting
+   variant is held to the queue-order mirror there.
 
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. A kernel's
@@ -181,10 +200,9 @@ time is the median of three timings, each the median of 20 runs. Each
 kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published peaks). K1's and K7's [time] lines also give the
-times of their PR 4 / PR 5 designs (WAS_MS, from PERF.md; not measured
-by the script). The script takes about 6 minutes, the
-kernels' build included.
+H100 SXM's published peaks). The earlier designs' times are measured by
+compare_walks.py (K4, K5) and recorded in PERF.md, not here. The script
+takes about 6 minutes, the kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
 describing each kernel, and {"ok": true, "device": {...}}.
@@ -271,15 +289,6 @@ MT_OPS = 56
 KEEP_OPS = 40
 # the grazing set of K1's checks (ops/dense_sweep.py grazing_rays)
 N_GRAZING = 65536
-# K1's and K7's times on the recorded render inputs of the same cells with
-# their PR 4 / PR 5 designs (per-lane sweep; union walk with a box rescan
-# per visit), on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6).
-# Printed beside the new times, labelled as such; not measured here.
-WAS_MS = {"K1 closest render (volume_sss)": 0.4810,
-          "K1 closest render (cornell)": 0.1325,
-          "K1 any render (cornell)": 0.1237,
-          "K1 dual render (volume_sss)": 0.5043,
-          "K7 dual render": 1.2716}
 # the adaptive phase: glossy at ADAPTIVE_SIZE^2, and the threshold of the
 # run that stops pixels early
 ADAPTIVE_SIZE, ADAPTIVE_SPP, ADAPTIVE_CHUNK = 256, 32, 4
@@ -456,6 +465,116 @@ def exactly(compare):
     return held
 
 
+# the tile-shared walks and their plain torch mirrors of the warp's visit
+# order: (scan order, the earlier design's; queue order, the kernel's)
+ORDER_MIRRORS = {"tile_walk": ("tile_scan_order", "tile_queue_order"),
+                 "cluster2_walk": ("cluster2_scan_order",
+                                   "cluster2_queue_order")}
+# the columns of their counts: the kernel's (= the queue-order mirror's)
+# and the scan-order mirror's
+ORDER_COUNTS = {"tile_walk": ("warp steps", "rows tested", "box tests",
+                              "passes"),
+                "cluster2_walk": ("superclusters entered", "group fills",
+                                  "rows fetched", "rows tested",
+                                  "transforms", "supercluster passes")}
+SCAN_COUNTS = {"tile_walk": ("warp steps", "rows tested", "entries read"),
+               "cluster2_walk": ORDER_COUNTS["cluster2_walk"][:5]}
+
+
+def order_mirror(name, args, any_hit, queue=False):
+    """The scan-order (queue=False) or queue-order mirror of K4
+    ("tile_walk"; args: the walk's eight positional arguments) or K5
+    ("cluster2_walk"; args: sc_bounds, cbounds, ctable, cluster_tris,
+    gmax, o, d, tmin, tmax, visibility; instance rows) on the kernel's
+    inputs: (hit dict, counts)."""
+    fn = getattr(module(name), ORDER_MIRRORS[name][int(queue)])
+    kw = {"shadow_any_hit": any_hit}
+    if name == "cluster2_walk":
+        kw["has_instances"] = True
+    return fn(*args, **kw)
+
+
+def held_to_scan_order(label, name, args, any_hit, got):
+    """Every output of K4 or K5 equal to its scan-order mirror's on every
+    lane, exact-t ties included: the warp visits the earlier design's
+    clusters in that design's order. Returns the mirror's counts."""
+    mirror, counts = order_mirror(name, args, any_hit)
+    for k in mirror:
+        assert torch.equal(got[k], mirror[k]), \
+            f"{label}: output {k} differs from the scan-order mirror's"
+    log(f"[kernels] {label}: every output equal to the scan-order "
+        "mirror's on every lane")
+    return counts
+
+
+def exact_off_ties(compare):
+    """`compare`, then t, u and v equal to the plain version's to the bit
+    on every lane whose prim and object agree with it."""
+    def held(name, ref, got, *extra):
+        err = compare(name, ref, got, *extra)
+        same = (ref["prim"] == got["prim"]) & \
+            (ref["object"] == got["object"])
+        for k in ("t", "u", "v"):
+            assert torch.equal(ref[k][same], got[k][same]), \
+                f"{name}: {k} differs from the plain version's off the ties"
+        return err
+    return held
+
+
+def in_scan_order(compare, name, args, any_hit):
+    """A K4 or K5 case's check: `compare` (for a closest hit t, u, v to
+    the bit off the ties), then held_to_scan_order."""
+    base = compare if any_hit else exact_off_ties(compare)
+
+    def held(label, ref, got, *extra):
+        err = base(label, ref, got, *extra)
+        held_to_scan_order(label, name, args, any_hit, got)
+        return err
+    return held
+
+
+def column_stats(cnt, names):
+    """Per column of int counts the lanes' mean, p50, p99 and max."""
+    x = cnt.to(torch.float64)
+    q = torch.quantile(x, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                       device=x.device), dim=0)
+    return {nm: {"mean": float(x[:, j].mean()), "p50": float(q[0, j]),
+                 "p99": float(q[1, j]), "max": float(x[:, j].max())}
+            for j, nm in enumerate(names)}
+
+
+def order_count_phase(label, name, args, any_hit):
+    """The counting variant of K4 or K5 on one input: its outputs equal
+    the plain launch's and the scan-order mirror's, and its counts equal
+    the queue-order mirror's on every lane. Prints and returns their
+    per-column stats, with the scan-order mirror's counts (the earlier
+    design's) beside them."""
+    kw = {"shadow_any_hit": any_hit}
+    if name == "cluster2_walk":
+        kw["has_instances"] = True
+    kern = wrapper(name)
+    ref = kern(*args, **kw)
+    got, cnt = kern(*args, counts=True, **kw)
+    sync()
+    assert all(torch.equal(ref[k], got[k]) for k in ref), \
+        f"{label}: the counting variant's outputs differ"
+    scnt = held_to_scan_order(label, name, args, any_hit, got)
+    _, qcnt = order_mirror(name, args, any_hit, queue=True)
+    assert torch.equal(cnt, qcnt), \
+        f"{label}: the counts differ from the queue-order mirror's"
+    st = {"kernel": column_stats(cnt, ORDER_COUNTS[name]),
+          "earlier design": column_stats(scnt, SCAN_COUNTS[name])}
+    fmt = lambda d: "; ".join(
+        f"{k} " + "/".join(f"{v[q]:.2f}" for q in ("mean", "p50", "p99",
+                                                    "max"))
+        for k, v in d.items())
+    log(f"[counts] {label} ({cnt.shape[0]} lanes; mean/p50/p99/max), equal "
+        f"to the queue-order mirror's on every lane: {fmt(st['kernel'])}; "
+        f"the earlier design's (scan-order mirror): "
+        f"{fmt(st['earlier design'])}")
+    return st
+
+
 def count_stats(cnt):
     """Per lane mean, p50, p99 and max of the rows and the boxes a walk
     tested (the first two columns of its int32 counts), per warp (32
@@ -615,7 +734,12 @@ def check_walks(kg, n_check, rng, walks, occlusion_forms,
                                     shadow_any_hit=any_hit)
                 sync()
                 mode = "any-hit" if any_hit else "closest"
-                errs[name] = max(errs[name], compare_walk(
+                compare = compare_walk
+                if name == "tile_walk":
+                    compare = in_scan_order(
+                        compare_walk, name,
+                        (cb, ct_, ctris, o, d, tmin, tmax, vis), any_hit)
+                errs[name] = max(errs[name], compare(
                     f"{name} {mode} {label}", ref, got, any_hit,
                     random_tie_frac if label == "random" else TIE_FRAC))
         tmax_any = torch.tensor(
@@ -639,8 +763,9 @@ def check_walks(kg, n_check, rng, walks, occlusion_forms,
 @contextlib.contextmanager
 def record_calls(names, nth):
     """While active, each named wrapper copies the arguments of its nth
-    call into the yielded {name: store} and then runs as before (so it
-    still launches and counts every call)."""
+    call into the yielded {name: store} ("args", "kw"; those of its nth
+    any-hit call under "any") and then runs as before (so it still
+    launches and counts every call)."""
     stores = {}
     origs = {}
     for name in names:
@@ -649,13 +774,19 @@ def record_calls(names, nth):
         origs[name] = (mod, fn_name, orig)
         store = stores[name] = {}
 
-        def recording(*args, _orig=orig, _store=store, _calls=[0], **kw):
+        def recording(*args, _orig=orig, _store=store, _calls=[0, 0], **kw):
             _calls[0] += 1
-            if _calls[0] == nth:
-                _store["args"] = tuple(
-                    a.clone() if torch.is_tensor(a) else a for a in args)
-                _store["kw"] = {k: v.clone() if torch.is_tensor(v) else v
-                                for k, v in kw.items()}
+            any_hit = bool(kw.get("shadow_any_hit", False))
+            _calls[1] += any_hit
+            if _calls[0] == nth or (any_hit and _calls[1] == nth):
+                copy = {"args": tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args),
+                        "kw": {k: v.clone() if torch.is_tensor(v) else v
+                               for k, v in kw.items()}}
+                if _calls[0] == nth:
+                    _store.update(copy)
+                if any_hit and _calls[1] == nth:
+                    _store["any"] = copy
             return _orig(*args, **kw)
 
         setattr(mod, fn_name, recording)
@@ -718,9 +849,6 @@ def timed_cases(cases, n, card, reps=(20, 3)):
             times[name]["counted_bound_ms"] = counted[0]()
             extra += (f", bound of the tests it ran "
                       f"{times[name]['counted_bound_ms']:.5f} ms")
-        if name in WAS_MS:
-            extra += (f"; was {WAS_MS[name]:.4f} ms (PR 4 / PR 5 design, "
-                      f"PERF.md)")
         log(f"[time] {name} @ {n} lanes: kernel {ms:.4f} ms (median of "
             f"three timings of {reps[0]} runs, {min(runs):.4f}-"
             f"{max(runs):.4f}), plain {plain_ms:.4f} ms, bound "
@@ -839,12 +967,14 @@ def volume_main_path_checks(kg, side, card, rec):
         f"{float((ra[7] > 1e-5).float().mean()):.4f}, any-hit window on "
         f"{float((ra[8] > 1e-5).float().mean()):.4f} of the lanes")
     k4 = wrapper("tile_walk")
+    rk4 = _positional("tile_walk", rec["tile_walk"])
     cases = {
-        "K4 closest render": _recorded_case("tile_walk", rec["tile_walk"],
-                                            compare_hits),
+        "K4 closest render": _recorded_case(
+            "tile_walk", rec["tile_walk"],
+            in_scan_order(compare_hits, "tile_walk", rk4[:8], rk4[8])),
         "K4 closest camera": (
             lambda: k4(*cam), lambda: ci.intersect_clusters(*cam),
-            "tile_walk", compare_hits,
+            "tile_walk", in_scan_order(compare_hits, "tile_walk", cam, False),
             lambda out: walk_bound(cam, {}, out)),
         "K3 dual render": _recorded_case(
             "occlusion_walk", rec["occlusion_walk"],
@@ -934,6 +1064,15 @@ def k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel="cluster2_walk"):
                                  shadow_any_hit=any_hit, has_instances=True)
 
 
+def k5_args(kg, o, d, tmin, tmax, vis):
+    """K5's positional arguments on the scene's tables (its mirrors'
+    too)."""
+    ds = kg["dscene"]
+    return (ds["sc_bounds"], ds["cluster_bounds"], ds["cluster_table"],
+            int(kg["cluster_tris"]), int(kg["sc_gmax"]), o, d, tmin, tmax,
+            vis)
+
+
 def cluster2_bound(kg, args, any_hit, out):
     """(bound ms, bound_by) of one K5 or K6 call (the work a lane must do
     is the same in both). Bytes: tables, rays and
@@ -988,7 +1127,11 @@ def check_cluster2(kg, n_check, rng, kernel="cluster2_walk"):
             got = k5_call(kg, o, d, tmin, tmax, vis, any_hit, kernel)
             sync()
             mode = "any-hit" if any_hit else "closest"
-            e = compare_walk(f"{kernel} {mode} {label}", ref, got, any_hit)
+            compare = compare_walk
+            if kernel == "cluster2_walk":
+                compare = in_scan_order(compare_walk, kernel, k5_args(
+                    kg, o, d, tmin, tmax, vis), any_hit)
+            e = compare(f"{kernel} {mode} {label}", ref, got, any_hit)
             assert e == 0.0, f"{kernel} {mode} {label}: |dt| {e} off the ties"
             err = max(err, e)
     return {kernel: err}
@@ -1016,9 +1159,12 @@ def sun_shadow_rays(kg, o, d, rng):
     return so, sd, stmin, stmax
 
 
-def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk"):
+def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk",
+                         counts=None):
     """At side x side lanes (the render's own width): K5 (or K6) closest
-    on the render's recorded input and any-hit on sun shadow rays; with
+    on the render's recorded input and any-hit on sun shadow rays; K5
+    also any-hit on the render's recorded any-hit input, after its
+    counting variant on both recorded inputs (stats into `counts`); with
     K6, K5 is timed on the same recorded input beside it."""
     tag = {"cluster2_walk": "K5", "onehot2_walk": "K6"}[kernel]
     ra = inspect.signature(wrapper(kernel)).bind(
@@ -1040,6 +1186,9 @@ def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk"):
              torch.full((n,), 128, dtype=torch.int32, device=o.device))
 
     def case(args, any_hit, compare, which=kernel):
+        if which == "cluster2_walk":
+            compare = in_scan_order(compare, which, k5_args(kg, *args),
+                                    any_hit)
         return (lambda: k5_call(kg, *args, any_hit, which),
                 lambda: k5_call(kg, *args, any_hit, None),
                 which, compare,
@@ -1047,6 +1196,19 @@ def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk"):
 
     cases = {f"{tag} closest render": case(rargs, False, compare_hits),
              f"{tag} any-hit shadow": case(sargs, True, compare_any_hit)}
+    if kernel == "cluster2_walk":
+        ra = inspect.signature(wrapper(kernel)).bind(
+            *rec["any"]["args"], **rec["any"]["kw"])
+        ra.apply_defaults()
+        b = ra.arguments
+        assert b["shadow_any_hit"] and b["o"].shape[0] == n
+        aargs = (b["o"], b["d"], b["tmin"], b["tmax"], b["visibility"])
+        cases[f"{tag} any-hit render"] = case(aargs, True, compare_any_hit)
+        for mode, args, any_hit in (("closest", rargs, False),
+                                    ("any-hit", aargs, True)):
+            counts[f"big_instanced render ({mode})"] = order_count_phase(
+                f"K5 {mode}, big_instanced render", kernel,
+                k5_args(kg, *args), any_hit)
     if kernel == "onehot2_walk":
         cases["K5 closest on K6's render input"] = case(
             rargs, False, compare_hits, "cluster2_walk")
@@ -1589,37 +1751,18 @@ def adaptive_checks(dev, card):
     return errs
 
 
-def grid_tables(c, ct, rng, dev):
-    """A single-level table of c clusters of ct random triangles: cluster
-    k's triangles lie in a cube of side 20 on a grid of pitch 30, its
-    boundary flags are random. Returns (cbounds, ctable, cboundary)."""
-    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
-    side = int(np.ceil(c ** (1.0 / 3.0)))
-    cells = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
-                     -1).reshape(-1, 3)[:c] * 30.0
-    verts = (cells[:, None, None, :]
-             + rng.uniform(0.0, 20.0, (c, ct, 3, 3))).astype(np.float32)
-    clusters = [{"verts": verts[k], "prim": np.arange(k * ct, (k + 1) * ct),
-                 "obj": np.full(ct, k % 7, np.int32),
-                 "vis": np.full(ct, 255, np.int32),
-                 "lo": verts[k].reshape(-1, 3).min(0),
-                 "hi": verts[k].reshape(-1, 3).max(0)} for k in range(c)]
-    cb, ctab, _ = ci.pack_cluster_table(clusters)
-    cbd = (rng.uniform(size=(c, ct)) < 0.3).astype(np.float32)
-    return (torch.tensor(cb, device=dev), torch.tensor(ctab, device=dev),
-            torch.tensor(cbd, device=dev))
-
-
 def cap_checks(dev, rng, card, n=N_CHECK):
     """A single-level table at the JAX package's cap (640 clusters of 15
     random triangles on a 9^3 grid) through the integrator's dispatch: K4
     answers the closest hit and K3 the occlusion walk (K2 is not
     launched), each held against its plain version on n random rays from
-    around the grid (K3 to the bit, K4 off exact-t ties) and timed."""
+    around the grid (K3 to the bit, K4 to the bit off exact-t ties and to
+    its scan-order mirror on every lane) and timed; K4's counting variant
+    is held to the queue-order mirror. Returns (times, errors, counts)."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     from raytracingproject_tpu_torch.ops import integrator as integ
     c, ct = CAP_CLUSTERS, 15
-    cb, ctab, cbd = grid_tables(c, ct, rng, dev)
+    cb, ctab, cbd = module("tile_walk").grid_tables(c, ct, rng, dev)
     kg = {"dscene": {"cluster_bounds": cb, "cluster_table": ctab,
                      "cluster_boundary": cbd},
           "cluster_tris": ct, "use_brute": False}
@@ -1645,16 +1788,19 @@ def cap_checks(dev, rng, card, n=N_CHECK):
     assert ran == {"cluster_walk": 0, "tile_walk": 1, "occlusion_walk": 1}
     walk = (cb, ctab, ct, o, d, tmin, tmaxc, vis)
     oargs = (cb, ctab, cbd, ct, o, d, tmin, tmaxc, tmaxa, 1, 128)
-    errs = {"tile_walk": compare_hits(f"tile_walk closest @ {c} clusters",
-                                      ci.intersect_clusters(*walk), hit),
+    in_order = in_scan_order(compare_hits, "tile_walk", walk, False)
+    errs = {"tile_walk": in_order(f"tile_walk closest @ {c} clusters",
+                                  ci.intersect_clusters(*walk), hit),
             "occlusion_walk": exactly(compare_occlusion)(
                 f"occlusion_walk dual @ {c} clusters",
                 ci.occlusion_clusters(*oargs), occ)}
+    counts = {"640 clusters": order_count_phase(
+        f"K4 closest, {c} clusters", "tile_walk", walk, False)}
     k3, k4 = wrapper("occlusion_walk"), wrapper("tile_walk")
     cases = {
         "K4 closest at the cap": (
             lambda: k4(*walk), lambda: ci.intersect_clusters(*walk),
-            "tile_walk", compare_hits, lambda out: walk_bound(walk, {}, out)),
+            "tile_walk", in_order, lambda out: walk_bound(walk, {}, out)),
         "K3 dual at the cap": (
             lambda: k3(*oargs), lambda: ci.occlusion_clusters(*oargs),
             "occlusion_walk", exactly(compare_occlusion),
@@ -1662,7 +1808,7 @@ def cap_checks(dev, rng, card, n=N_CHECK):
     }
     times, e = timed_cases(cases, n, card)
     merge(errs, e)
-    return times, errs
+    return times, errs, counts
 
 
 def merge(errs, new):
@@ -1743,6 +1889,9 @@ def main():
     counts["occlusion_walk"]["volume_sss render"] = count_phase(
         "K3 dual, volume_sss render", "occlusion_walk",
         v_rec["occlusion_walk"])
+    rk4 = _positional("tile_walk", v_rec["tile_walk"])
+    counts["tile_walk"] = {"volume_sss render": order_count_phase(
+        "K4 closest, volume_sss render", "tile_walk", rk4[:8], rk4[8])}
     v_times, e = volume_main_path_checks(vkg, 256, card, v_rec)
     merge(errs, e)
 
@@ -1766,8 +1915,10 @@ def main():
     b_launch, b_rec, b_st = full_width(
         card, "example:big_instanced", 256, 16, JAX_MEAN_BIG_256, 0.005,
         ("cluster2_walk",), chunk=8)
+    counts["cluster2_walk"] = {}
     b_times, e = big_main_path_checks(bkg, 256, rng, card,
-                                      b_rec["cluster2_walk"])
+                                      b_rec["cluster2_walk"],
+                                      counts=counts["cluster2_walk"])
     merge(errs, e)
 
     # ---- cornell_diffuse: 15. kernel checks; 16. accuracy; 17. full
@@ -1838,8 +1989,9 @@ def main():
     merge(errs, adaptive_checks(dev, card))
 
     # ---- 31. a single-level table at the cap ----
-    cap_times, e = cap_checks(dev, rng, card)
+    cap_times, e, cap_counts = cap_checks(dev, rng, card)
     merge(errs, e)
+    counts["tile_walk"].update(cap_counts)
 
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),

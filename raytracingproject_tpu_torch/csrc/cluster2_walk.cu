@@ -19,43 +19,60 @@
 // row's w2o (t is kept: the direction is not renormalised) before the
 // watertight test. Supercluster and cluster boxes are world space.
 //
-// Design here: K4's (csrc/tile_walk.cu), one level up. The tile is one
-// warp of 32 rays.
-//   - Entry tables in shared memory, laid out [entry][lane] (a lane reads
-//     its own column, conflict free): the supercluster table (SC, 32),
-//     8.3 KB at SC = 65 and 64 KB at the cap of 512, filled once; the
-//     group table (gmax, 32), 8 KB at gmax = 64, refilled on every group
-//     entry from the cluster bounds (read through L2; every lane reads the
-//     same box).
-//   - Pick: each lane scans its column for its smallest masked entry
-//     (first index on ties), then five butterfly shuffles take the warp's
-//     lexicographic minimum (entry, index): the TPU kernel's argmin over
-//     the per-entry tile minimum.
+// Design here: K4's (csrc/tile_walk.cu) at the supercluster level; the
+// tile is one warp of 32 rays.
+//   - Supercluster level: each lane keeps the K5_QUEUE smallest (entry,
+//     supercluster) pairs of a box pass in registers (64-bit keys), and the
+//     warp a retired bitmask (SC <= 512 bits); a pick drops retired and gated
+//     heads, refills a dry queue whose pairs fell off, and takes the
+//     warp's minimum of the heads (csrc/pair_queue.cuh). The earlier
+//     design scanned a (SC, 32) entry table on every pick.
+//   - Group level: the (gmax, 32) entry table in the warp's shared memory,
+//     laid out [entry][lane], filled on every group entry from the cluster
+//     bounds (read through L2) with each lane's boxes capped by its gate,
+//     and scanned on every pick (watertight.cuh warp_pick): gcount <= 16
+//     on big_instanced, so a queue would buy a pass as long as the scan.
 //   - Row: the warp copies the picked cluster's row (W floats; 1,876 bytes
-//     at 38 triangles) from global memory (the 1.9 MB table of the
-//     big_instanced scene stays in L2) into a per-warp shared buffer,
-//     lanes striding. With instance rows every lane then transforms its
-//     ray and rebuilds its shear basis; every lane whose entry passes its
-//     gate tests the row's triangles in order with strict t < best.
-//   - The host fits up to 4 warps per block into the 227 KB a block can
-//     have and refuses tables that do not fit one warp.
+//     at 38 triangles) into a per-warp shared buffer, lanes striding. A
+//     lane whose entry passes its gate tests the row's triangles in order
+//     with strict t < best; with instance rows it first transforms its ray
+//     and rebuilds its shear basis, unless the row's 12 w2o floats are bit
+//     for bit the ones it used last (the clusters of one instance share
+//     them). The earlier design transformed on every lane for every row.
+//   - Shared memory: the supercluster table once per block (SC x 32
+//     bytes) and per warp the group table, a row and the bitmask; up to 4
+//     warps a block (3 at SC = gmax = 512).
 // What bounds it on the H100: latency, not bytes or arithmetic. A warp's
-// steps are serial: a shared-memory scan of SC or gmax entries per lane,
-// a dependent row copy, then up to 38 triangle tests. The bytes the
-// function must move (rays, results, 2 MB of tables) take about a
-// microsecond at 3.35 TB/s.
+// steps are serial: a dependent row copy, then up to 38 triangle tests.
+// The bytes the function must move (rays, results, 2 MB of tables) take
+// about a microsecond at 3.35 TB/s.
+//
+// The counting variant (COUNT) writes per lane the superclusters its warp
+// entered, the group tables it filled, the rows its warp fetched, the rows
+// it tested, the w2o transforms it computed and its supercluster passes,
+// into counts[6 * lane]; ops/cluster2_walk.py cluster2_queue_order
+// computes the same counts in plain torch.
 //
 // Rounding: the slab and triangle tests are watertight.cuh's, the
 // transform is m[0]*ox + m[1]*oy + m[2]*oz + m[3] left to right as in the
 // plain version, and the build uses -fmad=false, so t, u, v equal the
 // plain version's to the bit; prim and object can differ only where two
-// clusters hold hits at the same t (the tile's visit order differs from
-// the lane's).
-#include "watertight.cuh"
+// clusters hold hits at the same t (the warp's visit order differs from
+// the lane's). Every output equals cluster2_scan_order's on every lane.
+#include "pair_queue.cuh"
 
 #define TILE RT_TILE
+#define K5_WARPS 4
+#define K5_MAX_WORDS 16  // supercluster bitmask words: SC <= 512
+// Queue length (PERF.md section 6, compare_walks.py): big_instanced's
+// render inputs make 1.00 supercluster passes a lane at 4 (max 2), and 4
+// was as fast as 8, 12 and 16 there at the fewest registers.
+#ifndef K5_QUEUE
+#define K5_QUEUE 4
+#endif
 
-__global__ void cluster2_walk_kernel(
+template <int Q, bool COUNT>
+__global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
     const float* __restrict__ scb, const float* __restrict__ cbounds,
     const float* __restrict__ ctable, int SC, int C, int W, int ct, int gmax,
     const float* __restrict__ o, const float* __restrict__ d,
@@ -63,14 +80,18 @@ __global__ void cluster2_walk_kernel(
     const int* __restrict__ vis_a, int n, int any_hit, int instances,
     float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ obj_out) {
+    int* __restrict__ obj_out, int* __restrict__ counts) {
     extern __shared__ float smem[];
+    __shared__ unsigned int retired_all[K5_WARPS][K5_MAX_WORDS];
     const int lane = threadIdx.x & (TILE - 1);
     const int warp = threadIdx.x / TILE;
-    const size_t per_warp = (size_t)(SC + gmax) * TILE + W;
-    float* sc_entry = smem + (size_t)warp * per_warp;
-    float* centry = sc_entry + (size_t)SC * TILE;
+    float* ssc = smem;
+    float* centry = smem + (size_t)SC * 8 + (size_t)warp * (gmax * TILE + W);
     float* row = centry + (size_t)gmax * TILE;
+    unsigned int* retired = retired_all[warp];
+    for (int k = threadIdx.x; k < SC * 8; k += blockDim.x) ssc[k] = scb[k];
+    for (int k = lane; k < K5_MAX_WORDS; k += TILE) retired[k] = 0u;
+    __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const bool live = i < n;  // lanes past n walk along with no entries
 
@@ -83,27 +104,34 @@ __global__ void cluster2_walk_kernel(
     const int vis = live ? vis_a[i] : 0;
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
-    for (int s = 0; s < SC; ++s) {
-        float b[6];
-        for (int j = 0; j < 6; ++j) b[j] = __ldg(scb + 8 * s + j);
-        sc_entry[s * TILE + lane] =
-            live ? slab_entry(b, ox, oy, oz, ix, iy, iz, tmin, tmax) : RT_INF;
-    }
+    auto sc_entry_of = [&](int s) {
+        return slab_entry(ssc + 8 * s, ox, oy, oz, ix, iy, iz, tmin, tmax);
+    };
+    // the w2o bits the lane's shear basis w was last built from
+    unsigned int wm[12];
+    bool have_wm = false;
 
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
     int bp = -1, bo = -1;
+    int entered = 0, fills = 0, fetched = 0, rows = 0, xforms = 0,
+        passes = 0, boxes = 0;
     const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
               vbase = obase + ct;
-    // the lane's mask: entries below its best t; none once an any-hit lane
+    // the lane's gate: entries below its best t; none once an any-hit lane
     // has its hit
 #define GATE() ((any_hit && bp >= 0) ? -RT_INF : fminf(bt, RT_INF))
-    int scid;
-    float msc = warp_pick(sc_entry, SC, lane, GATE(), &scid);
-    for (int outer = 0; outer < SC && msc < RT_INF; ++outer) {
-        const int cstart = (int)__ldg(scb + 8 * scid + 6);
-        const int gcount = (int)__ldg(scb + 8 * scid + 7);
+    RtLaneQueue<Q> queue;
+    queue.init(live);
+    for (int outer = 0; outer < SC; ++outer) {
+        const rt_key msc = rt_warp_key_min(
+            queue.head(retired, SC, GATE(), sc_entry_of, &passes, &boxes));
+        if (msc == RT_NO_KEY64) break;  // warp-uniform: no lane has a pair
+        const int scid = rt_key_id(msc);
+        const int cstart = (int)ssc[8 * scid + 6];
+        const int gcount = (int)ssc[8 * scid + 7];
         // the group's entry table, each lane's segment capped by its gate
         const float need = fminf(GATE(), tmax);
+        __syncwarp();  // every lane is done with the previous group's table
         for (int g = 0; g < gmax; ++g) {
             float e = RT_INF;
             if (g < gcount && live) {
@@ -114,6 +142,10 @@ __global__ void cluster2_walk_kernel(
             }
             centry[g * TILE + lane] = e;
         }
+        if (COUNT) {
+            ++entered;
+            ++fills;
+        }
         int g;
         float mc = warp_pick(centry, gcount, lane, GATE(), &g);
         for (int inner = 0; inner < gcount && mc < RT_INF; ++inner) {
@@ -121,17 +153,33 @@ __global__ void cluster2_walk_kernel(
             __syncwarp();  // every lane is done with the previous row
             for (int k = lane; k < W; k += TILE) row[k] = __ldg(grow + k);
             __syncwarp();
-            if (instances) {
-                const float* m = row;
-                const float oxx = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-                const float oyy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-                const float ozz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-                const float dxx = m[0] * dx + m[1] * dy + m[2] * dz;
-                const float dyy = m[4] * dx + m[5] * dy + m[6] * dz;
-                const float dzz = m[8] * dx + m[9] * dy + m[10] * dz;
-                w = wt_setup(oxx, oyy, ozz, dxx, dyy, dzz);
-            }
+            if (COUNT) ++fetched;
             if (centry[g * TILE + lane] < GATE()) {
+                if (COUNT) ++rows;
+                if (instances) {
+                    bool same = have_wm;
+#pragma unroll
+                    for (int k = 0; k < 12; ++k)
+                        same = same && __float_as_uint(row[k]) == wm[k];
+                    if (!same) {
+                        const float* m = row;
+                        const float oxx =
+                            m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+                        const float oyy =
+                            m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+                        const float ozz =
+                            m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+                        const float dxx = m[0] * dx + m[1] * dy + m[2] * dz;
+                        const float dyy = m[4] * dx + m[5] * dy + m[6] * dz;
+                        const float dzz = m[8] * dx + m[9] * dy + m[10] * dz;
+                        w = wt_setup(oxx, oyy, ozz, dxx, dyy, dzz);
+#pragma unroll
+                        for (int k = 0; k < 12; ++k)
+                            wm[k] = __float_as_uint(row[k]);
+                        have_wm = true;
+                        if (COUNT) ++xforms;
+                    }
+                }
                 for (int k = 0; k < ct; ++k) {
                     const float pid = row[pbase + k];
                     if (!(pid >= 0.0f)) continue;
@@ -152,8 +200,10 @@ __global__ void cluster2_walk_kernel(
             centry[g * TILE + lane] = RT_INF;  // retired for the tile
             mc = warp_pick(centry, gcount, lane, GATE(), &g);
         }
-        sc_entry[scid * TILE + lane] = RT_INF;
-        msc = warp_pick(sc_entry, SC, lane, GATE(), &scid);
+        // the supercluster is retired for the warp; every lane is past its
+        // reads of the bitmask (the shuffles above)
+        if (lane == 0) retired[scid >> 5] |= 1u << (scid & 31);
+        __syncwarp();
     }
 #undef GATE
     if (!live) return;
@@ -162,11 +212,45 @@ __global__ void cluster2_walk_kernel(
     u_out[i] = bu;
     v_out[i] = bv;
     obj_out[i] = bo;
+    if (COUNT) {
+        int* c = counts + 6 * i;
+        c[0] = entered;
+        c[1] = fills;
+        c[2] = fetched;
+        c[3] = rows;
+        c[4] = xforms;
+        c[5] = passes;
+    }
 }
 
-// Shared memory one warp needs: both entry tables and a row.
-static size_t per_warp_bytes(int SC, int gmax, int W) {
-    return ((size_t)(SC + gmax) * TILE + (size_t)W) * sizeof(float);
+template <bool COUNT>
+static int launch(const float* scb, const float* cbounds, const float* ctable,
+                  int SC, int C, int W, int ct, int gmax, const float* o,
+                  const float* d, const float* tmin, const float* tmax,
+                  const int* vis, int n, int any_hit, int instances, float* t,
+                  int* prim, float* u, float* v, int* obj, int* counts,
+                  cudaStream_t stream) {
+    // the supercluster table, then per warp the group table and a row; up
+    // to K5_WARPS warps a block within the 227 KB a block can have (the
+    // bitmasks are static)
+    const size_t fixed = (size_t)SC * 8 * sizeof(float);
+    const size_t per_warp = ((size_t)gmax * TILE + W) * sizeof(float);
+    const size_t smem_max =
+        227 * 1024 - K5_WARPS * K5_MAX_WORDS * sizeof(unsigned int);
+    if (fixed + per_warp > smem_max) return (int)cudaErrorInvalidValue;
+    int warps = (int)((smem_max - fixed) / per_warp);
+    if (warps > K5_WARPS) warps = K5_WARPS;
+    const size_t smem = fixed + per_warp * warps;
+    cudaError_t err = cudaFuncSetAttribute(
+        cluster2_walk_kernel<K5_QUEUE, COUNT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int block = warps * TILE;
+    const int grid = (n + block - 1) / block;
+    cluster2_walk_kernel<K5_QUEUE, COUNT><<<grid, block, smem, stream>>>(
+        scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin, tmax, vis, n,
+        any_hit, instances, t, prim, u, v, obj, counts);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int rt_cluster2_walk(const float* scb, const float* cbounds,
@@ -176,22 +260,14 @@ extern "C" int rt_cluster2_walk(const float* scb, const float* cbounds,
                                 const float* tmax, const int* vis, int n,
                                 int any_hit, int instances, float* t,
                                 int* prim, float* u, float* v, int* obj,
-                                void* stream) {
+                                int* counts, void* stream) {
     if (n <= 0) return 0;
-    const size_t per_warp = per_warp_bytes(SC, gmax, W);
-    const size_t smem_max = 227 * 1024;
-    int warps = (int)(smem_max / per_warp);
-    if (warps < 1) return (int)cudaErrorInvalidValue;
-    if (warps > 4) warps = 4;
-    const size_t smem = per_warp * warps;
-    cudaError_t err = cudaFuncSetAttribute(
-        cluster2_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int block = warps * TILE;
-    const int grid = (n + block - 1) / block;
-    cluster2_walk_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin, tmax, vis, n,
-        any_hit, instances, t, prim, u, v, obj);
-    return (int)cudaGetLastError();
+    if (SC > K5_MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
+    if (counts)
+        return launch<true>(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d,
+                            tmin, tmax, vis, n, any_hit, instances, t, prim,
+                            u, v, obj, counts, (cudaStream_t)stream);
+    return launch<false>(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin,
+                         tmax, vis, n, any_hit, instances, t, prim, u, v, obj,
+                         counts, (cudaStream_t)stream);
 }

@@ -12,54 +12,78 @@
 // has its any hit) is smallest over the whole tile, tests every lane of
 // the tile against that one row, and retires the cluster for the tile.
 //
-// Design here: the tile is one warp of 32 rays, and the same walk runs
-// with warp-level reductions instead of the 1,024-lane vector unit.
-//   - Entry table: per warp a (C, 32) float table in shared memory,
-//     laid out [cluster][lane] so that a lane reading its own column is
-//     bank-conflict free. It is filled once from the cluster bounds.
-//     Sizing the tile by C keeps it in shared memory: C * 32 * 4 bytes
-//     is 11.9 KB at C = 93 (volume_sss), 22.9 KB at C = 179 (glossy) and
-//     80 KB at C = 640; the host picks 4 warps per block where that fits
-//     in the 227 KB a block can have, fewer for large C (2 at C = 640).
-//   - Pick: each lane scans its column for its smallest masked entry
-//     (first cluster on ties), then five butterfly shuffles take the
-//     lexicographic minimum (entry, cluster) over the warp -- the TPU
-//     kernel's argmin over clusters of the per-cluster tile minimum.
-//   - Row: the warp copies the picked cluster's row (W floats, 772 bytes
-//     at 15 triangles) into a per-warp shared-memory buffer, lanes
-//     striding, and every lane whose own entry passes its mask tests the
-//     row's triangles in order with strict t < best (the TPU kernel's
-//     sequential update). The cluster is then retired for the warp.
-//   - The walk ends when no lane has a masked entry left, or after C
-//     steps.
-// What bounds it on the H100: latency, not bytes. Each step costs a
-// C-entry shared-memory scan per lane and a dependent row copy; the
-// tables (72 KB for volume_sss) stay in L2. The bytes the function must
-// move (rays, results, tables) take microseconds at 3.35 TB/s.
+// Design here: the tile is one warp of 32 rays, and each step picks what
+// the TPU kernel's step picks: the lexicographic minimum (entry, cluster)
+// over the lanes' smallest unretired entries below their gates.
+//   - The earlier design kept a (C, 32) entry table per warp in shared
+//     memory (80 KB at C = 640, 2 warps a block) and scanned a lane's
+//     whole column on every step: C shared loads per lane per step.
+//   - Now each lane keeps the K4_QUEUE smallest (entry, cluster) pairs of
+//     a box pass, sorted in registers as 64-bit keys (csrc/pair_queue.cuh:
+//     the entry's 32 bits, then the id; the order is exact for any cluster
+//     id, unlike K2's 9-bit packed key). A step: each lane drops the
+//     head pairs that are retired or not below its gate (and makes a new
+//     box pass when its queue ran dry and a pair fell off its end), five
+//     shuffles take the warp's minimum of the heads, the warp copies that
+//     row into shared memory, every lane whose own entry into the cluster
+//     (one slab test) is below its gate tests the row's triangles in
+//     order with strict t < best, and lane 0 sets the cluster's bit in the
+//     warp's retired bitmask (ceil(C / 32) words). The candidate sets only
+//     shrink, so a lane's head is always what the table scan found, and
+//     the warp visits the earlier design's clusters in its order.
+//   - Shared memory: the cluster bounds once per block (C x 24 bytes, 15
+//     KB at 640) and per warp a row and the bitmask, so 4 warps a block
+//     at every C.
+//   - The walk ends when no lane has a pair left, or after C steps.
+// What bounds it on the H100: latency, not bytes. A warp's steps are
+// serial: a dependent row copy and up to ct triangle tests, run for the
+// warp whenever one lane tests the row; the tables (72 KB for volume_sss)
+// stay in L2. A box pass runs the insertion network for the warp whenever
+// one lane inserts, so a lane that needs a second pass holds its warp: the
+// queue is long enough that none does on the render input.
+//
+// The counting variant (COUNT) writes per lane the steps of its warp (rows
+// fetched), the rows it tested, its box tests and its box passes, into
+// counts[4 * lane]; ops/tile_walk.py tile_queue_order computes the same
+// counts in plain torch.
 //
 // Rounding: the triangle and slab tests are the shared helpers of
 // watertight.cuh, built with -fmad=false, so t, u, v equal the plain
-// version's to the bit; prim and object can differ only where two
-// clusters hold hits at the same t (the tile's visit order differs from
-// the lane's).
-#include "watertight.cuh"
+// version's to the bit; prim and object (and t by an ulp, for coplanar
+// triangles) can differ only where two clusters hold hits at the same t
+// (the warp's visit order differs from the lane's). Every output equals
+// tile_scan_order's on every lane.
+#include "pair_queue.cuh"
 
-#define TILE 32
+#define TILE RT_TILE
+#define K4_WARPS 4
+#define K4_MAX_WORDS 20  // retired bitmask words: C <= 640
+// Queue length (PERF.md section 6, compare_walks.py): at 12 no lane of
+// volume_sss's render input makes a second pass, and 12 was the fastest of
+// 4, 8, 12 and 16 there (at 80 registers).
+#ifndef K4_QUEUE
+#define K4_QUEUE 12
+#endif
 
-__global__ void tile_walk_kernel(
+template <int Q, bool COUNT>
+__global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ tmin_a,
     const float* __restrict__ tmax_a, const int* __restrict__ vis_a, int n,
     int any_hit, float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ obj_out) {
+    int* __restrict__ obj_out, int* __restrict__ counts) {
     extern __shared__ float smem[];
+    __shared__ unsigned int retired_all[K4_WARPS][K4_MAX_WORDS];
     const int lane = threadIdx.x & (TILE - 1);
     const int warp = threadIdx.x / TILE;
-    const int warps = blockDim.x / TILE;
-    float* entry = smem + (size_t)warp * C * TILE;
-    float* row = smem + (size_t)warps * C * TILE + (size_t)warp * W;
+    float* sb = smem;
+    float* row = smem + (size_t)C * 6 + (size_t)warp * W;
+    unsigned int* retired = retired_all[warp];
+    for (int k = threadIdx.x; k < C * 6; k += blockDim.x) sb[k] = cbounds[k];
+    for (int k = lane; k < K4_MAX_WORDS; k += TILE) retired[k] = 0u;
+    __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const bool live = i < n;  // lanes past n walk along with no entries
 
@@ -72,44 +96,35 @@ __global__ void tile_walk_kernel(
     const int vis = live ? vis_a[i] : 0;
     const WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    for (int c = 0; c < C; ++c) {
-        float b[6];
-        for (int j = 0; j < 6; ++j) b[j] = __ldg(cbounds + 6 * c + j);
-        entry[c * TILE + lane] =
-            live ? slab_entry(b, ox, oy, oz, ix, iy, iz, tmin, tmax) : RT_INF;
-    }
+    auto entry_of = [&](int c) {
+        return slab_entry(sb + 6 * c, ox, oy, oz, ix, iy, iz, tmin, tmax);
+    };
 
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
     int bp = -1, bo = -1;
+    int steps = 0, rows = 0, boxes = 0, passes = 0;
     const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
               vbase = obase + ct;
+    RtLaneQueue<Q> queue;
+    queue.init(live);
     for (int step = 0; step < C; ++step) {
-        // the lane's mask: entries below its best t; none once an any-hit
+        // the lane's gate: entries below its best t; none once an any-hit
         // lane has its hit
         const float gate = (any_hit && bp >= 0) ? -RT_INF : fminf(bt, RT_INF);
-        float m = RT_INF;
-        int mc = C;
-        for (int c = 0; c < C; ++c) {
-            const float e = entry[c * TILE + lane];
-            if (e < gate && e < m) {
-                m = e;
-                mc = c;
-            }
-        }
-        for (int off = TILE / 2; off > 0; off >>= 1) {
-            const float om = __shfl_xor_sync(0xFFFFFFFFu, m, off);
-            const int oc = __shfl_xor_sync(0xFFFFFFFFu, mc, off);
-            if (om < m || (om == m && oc < mc)) {
-                m = om;
-                mc = oc;
-            }
-        }
-        if (!(m < RT_INF)) break;  // warp-uniform: no lane has an entry
+        const rt_key m = rt_warp_key_min(
+            queue.head(retired, C, gate, entry_of, &passes, &boxes));
+        if (m == RT_NO_KEY64) break;  // warp-uniform: no lane has a pair
+        const int mc = rt_key_id(m);
         const float* grow = ctable + (size_t)mc * W;
         __syncwarp();  // every lane is done with the previous row
         for (int k = lane; k < W; k += TILE) row[k] = __ldg(grow + k);
         __syncwarp();
-        if (entry[mc * TILE + lane] < gate) {
+        if (COUNT) {
+            ++steps;
+            ++boxes;
+        }
+        if (live && entry_of(mc) < gate) {
+            if (COUNT) ++rows;
             for (int k = 0; k < ct; ++k) {
                 const float pid = row[pbase + k];
                 if (!(pid >= 0.0f)) continue;
@@ -126,7 +141,10 @@ __global__ void tile_walk_kernel(
                 }
             }
         }
-        entry[mc * TILE + lane] = RT_INF;  // retired for the whole tile
+        // retired for the whole warp; every lane is past its reads of the
+        // bitmask (the shuffles above)
+        if (lane == 0) retired[mc >> 5] |= 1u << (mc & 31);
+        __syncwarp();
     }
     if (!live) return;
     t_out[i] = bt;
@@ -134,6 +152,33 @@ __global__ void tile_walk_kernel(
     u_out[i] = bu;
     v_out[i] = bv;
     obj_out[i] = bo;
+    if (COUNT) {
+        counts[4 * i] = steps;
+        counts[4 * i + 1] = rows;
+        counts[4 * i + 2] = boxes;
+        counts[4 * i + 3] = passes;
+    }
+}
+
+template <bool COUNT>
+static int launch(const float* cbounds, const float* ctable, int C, int W,
+                  int ct, const float* o, const float* d, const float* tmin,
+                  const float* tmax, const int* vis, int n, int any_hit,
+                  float* t, int* prim, float* u, float* v, int* obj,
+                  int* counts, cudaStream_t stream) {
+    const size_t smem = ((size_t)C * 6 + (size_t)K4_WARPS * W) * sizeof(float);
+    if (smem + sizeof(unsigned int) * K4_WARPS * K4_MAX_WORDS > 227 * 1024)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        tile_walk_kernel<K4_QUEUE, COUNT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int block = K4_WARPS * TILE;
+    const int grid = (n + block - 1) / block;
+    tile_walk_kernel<K4_QUEUE, COUNT><<<grid, block, smem, stream>>>(
+        cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
+        u, v, obj, counts);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int rt_tile_walk(const float* cbounds, const float* ctable, int C,
@@ -141,22 +186,14 @@ extern "C" int rt_tile_walk(const float* cbounds, const float* ctable, int C,
                             const float* tmin, const float* tmax,
                             const int* vis, int n, int any_hit, float* t,
                             int* prim, float* u, float* v, int* obj,
-                            void* stream) {
+                            int* counts, void* stream) {
     if (n <= 0) return 0;
-    const size_t per_warp = ((size_t)C * TILE + (size_t)W) * sizeof(float);
-    const size_t smem_max = 227 * 1024;
-    int warps = (int)(smem_max / per_warp);
-    if (warps < 1) return (int)cudaErrorInvalidValue;
-    if (warps > 4) warps = 4;
-    const size_t smem = per_warp * warps;
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int block = warps * TILE;
-    const int grid = (n + block - 1) / block;
-    tile_walk_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
-        u, v, obj);
-    return (int)cudaGetLastError();
+    if (C > K4_MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
+    if (counts)
+        return launch<true>(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis,
+                            n, any_hit, t, prim, u, v, obj, counts,
+                            (cudaStream_t)stream);
+    return launch<false>(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n,
+                         any_hit, t, prim, u, v, obj, counts,
+                         (cudaStream_t)stream);
 }

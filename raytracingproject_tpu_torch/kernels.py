@@ -48,13 +48,14 @@ SIGNATURES = {
     "occlusion_walk.cu": {"rt_occlusion_walk": [
         _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
         _P, _P]},
-    "tile_walk.cu": {"rt_tile_walk": _WALK},
+    # K4 as K2: counts (N, 4) int32 or null before the stream
+    "tile_walk.cu": {"rt_tile_walk": _WALK[:-1] + [_P, _P]},
     # sc_bounds cbounds ctable SC C W ct gmax o d tmin tmax vis n any_hit
-    # instances t prim u v obj stream
+    # instances t prim u v obj counts stream (counts: (N, 6) int32 or null)
     "cluster2_walk.cu": {"rt_cluster2_walk": [
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P]},
-    # K6 takes K5's arguments
+        _P, _P, _P, _P, _P, _P, _P]},
+    # K6 takes K5's arguments but counts
     "onehot2_walk.cu": {"rt_onehot2_walk": [
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P]},

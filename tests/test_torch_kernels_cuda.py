@@ -10,7 +10,9 @@ the Moeller-Trumbore mode) through the dense arrays of cornell_diffuse
 (36 prims) and volume_sss (1,008 prims), and K7 (ops/dual_walk.py: a
 closest-hit ray with mixed per-lane visibility paired with an any-hit ray
 toward the lamp, and each ray switched off by an empty window) through the
-glossy tables. K3's
+glossy tables; K4 and K5 also against their scan-order and queue-order
+mirrors of the warp's visit order (ops/tile_walk.py, ops/cluster2_walk.py),
+every output and every count equal on every lane. K3's
 dual form runs on a seeded random volume-boundary table (the glossy
 scene's own is all zeros), so both of its minima are exercised. Kernel
 and plain version share one operation order and the kernels build with
@@ -474,3 +476,64 @@ def test_counting_variants_keep_the_outputs(kg, kg_volume, kernel):
     else:
         # the warp keeps at least what each of its lanes keeps
         assert bool((cnt[:, 2] >= cnt[:, 1]).all())
+
+
+def _in_scan_order(module, kern, scan, queue, args, any_hit, two):
+    """The kernel's five outputs equal its scan-order mirror's on every
+    lane, ties included; its counting variant's outputs equal the plain
+    launch's and its counts the queue-order mirror's."""
+    kw = {"shadow_any_hit": any_hit}
+    if two:
+        kw["has_instances"] = True
+    before = module.launches
+    got = kern(*args, **kw)
+    got_c, cnt = kern(*args, counts=True, **kw)
+    ref, _ = scan(*args, **kw)
+    _, qcnt = queue(*args, **kw)
+    torch.cuda.synchronize()
+    assert module.launches == before + 2
+    assert (ref["prim"] >= 0).float().mean().item() > 0.05
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got_c[k], got[k]), k
+    assert torch.equal(cnt, qcnt)
+
+
+@pytest.mark.parametrize("scene", ["glossy", "volume_sss", "grid640"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tile_walk_kernel_in_scan_order(kg, kg_volume, scene, any_hit):
+    """K4 visits the earlier design's clusters in its order (the
+    lexicographic warp minimum of (entry, cluster)), from per-lane queues:
+    held to ops/tile_walk.py tile_scan_order and tile_queue_order on the
+    glossy and volume_sss tables and a 640-cluster grid table."""
+    o, d, tmax_any, _ = _rays(18)
+    if scene == "grid640":
+        cb, ctab, _ = k4.grid_tables(640, 15, np.random.default_rng(19),
+                                     "cuda")
+        tabs = (cb, ctab, 15)
+        o = (o + 300.0) * (270.0 / 1200.0)
+    else:
+        ds = (kg if scene == "glossy" else kg_volume)["dscene"]
+        tabs = (ds["cluster_bounds"], ds["cluster_table"],
+                (kg if scene == "glossy" else kg_volume)["cluster_tris"])
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = (*tabs, o.contiguous(), d, tmin, tmax,
+            torch.ones(N, dtype=torch.int32, device="cuda"))
+    _in_scan_order(k4, k4.intersect_clusters_tile, k4.tile_scan_order,
+                   k4.tile_queue_order, args, any_hit, False)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster2_walk_kernel_in_scan_order(kg_instanced, any_hit):
+    """K5 on the big_instanced tables, held to ops/cluster2_walk.py
+    cluster2_scan_order and cluster2_queue_order (instance rows)."""
+    ds = kg_instanced["dscene"]
+    o, d, tmax_any, _ = _rays(20, lo=-20.0, hi=20.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = (ds["sc_bounds"], ds["cluster_bounds"], ds["cluster_table"],
+            kg_instanced["cluster_tris"], kg_instanced["sc_gmax"], o, d,
+            tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
+    _in_scan_order(k5, k5.intersect_clusters2_walk, k5.cluster2_scan_order,
+                   k5.cluster2_queue_order, args, any_hit, True)
