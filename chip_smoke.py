@@ -144,12 +144,25 @@ every closest hit and, in its dual form, both volume-NEE sweeps):
 big_instanced with pallas_onehot2 (K6 for every closest hit and shadow
 test):
 
-23. K6 vs its plain version as K5 in 11;
+23. K6 vs its plain version as K5 in 11, and every output equal to its
+   scan-order mirror's (ops/onehot2_walk.py onehot2_scan_order: the first
+   design's visit order) on every lane, ties included;
 24. full width: 256x256, 16 spp, chunk 8 (example:big_instanced:onehot2);
-   mean within 0.5% of JAX_MEAN_BIG_256, K6 launched; third call copied;
-25. main-path shapes: at 65,536 lanes K6 on the copied closest-hit input
-   and on sun shadow rays, held and timed, and K5 timed on the same copied
-   input beside it.
+   mean within 0.5% of JAX_MEAN_BIG_256, K6 launched; the inputs of its
+   third closest-hit and third any-hit call are copied;
+25. main-path shapes: the counting variant of K6 on both copied inputs
+   (outputs equal to the plain launch's and to the scan-order mirror's;
+   per lane the superclusters its warp entered, the groups it walked, its
+   group box tests and passes, the rows it read and tested, its w2o
+   transforms and its supercluster passes, equal on every lane to
+   onehot2_queue_order's, with the first design's counts and the warp's
+   inner steps beside them); at 65,536 lanes K6 on the copied inputs and
+   on sun shadow rays held against its plain version and the scan-order
+   mirror and timed, and K5 timed on the copied closest-hit input beside
+   it; then the same checks, counts and times on a synthetic two-level
+   table at the caps (512 superclusters of 16 clusters of 38 triangles,
+   instance rows; ops/onehot2_walk.py grid_tables2) under 65,536 random
+   rays, closest and any hit.
 
 glossy_nee_mis in fused-NEE mode (examples.GLOSSY_FUSED: the union walk K7
 answers every closest hit and every NEE shadow test; K2 and K3 are not
@@ -201,7 +214,8 @@ kernel's bound (the least time the card could take for the same work) is
 computed from the inputs of its timed call: the larger of the bytes it
 must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
 H100 SXM's published peaks). The earlier designs' times are measured by
-compare_walks.py (K4, K5) and recorded in PERF.md, not here. The script
+compare_walks.py (K4, K5; K6 with --kernel k6) and recorded in PERF.md,
+not here. The script
 takes about 6 minutes, the kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
@@ -296,6 +310,10 @@ ADAPTIVE_THRESHOLD = 0.02
 # the JAX package's single-level cap: the largest table K3 and K4 take
 # (K2 and K7 take 512)
 CAP_CLUSTERS = 640
+# K6's synthetic table at the two-level caps: superclusters (K5 and K6
+# take 512), clusters a group, triangles a cluster (big_instanced's 38):
+# 8,192 rows, 15.4 MB
+K6_CAP = (512, 16, 38)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -465,40 +483,53 @@ def exactly(compare):
     return held
 
 
-# the tile-shared walks and their plain torch mirrors of the warp's visit
+# the tile-shared walks and K6 and their plain torch mirrors of the visit
 # order: (scan order, the earlier design's; queue order, the kernel's)
 ORDER_MIRRORS = {"tile_walk": ("tile_scan_order", "tile_queue_order"),
                  "cluster2_walk": ("cluster2_scan_order",
-                                   "cluster2_queue_order")}
+                                   "cluster2_queue_order"),
+                 "onehot2_walk": ("onehot2_scan_order",
+                                  "onehot2_queue_order")}
+# the walks on two-level tables (instance rows)
+TWO_LEVEL = ("cluster2_walk", "onehot2_walk")
 # the columns of their counts: the kernel's (= the queue-order mirror's)
 # and the scan-order mirror's
 ORDER_COUNTS = {"tile_walk": ("warp steps", "rows tested", "box tests",
                               "passes"),
                 "cluster2_walk": ("superclusters entered", "group fills",
                                   "rows fetched", "rows tested",
-                                  "transforms", "supercluster passes")}
+                                  "transforms", "supercluster passes"),
+                "onehot2_walk": ("superclusters entered", "groups walked",
+                                 "group box tests", "group passes",
+                                 "rows read", "rows tested", "transforms",
+                                 "supercluster passes")}
+# K6's scan-order mirror counts what the first design did: a rescan a
+# visit, a transform a row, a table scan a pick
 SCAN_COUNTS = {"tile_walk": ("warp steps", "rows tested", "entries read"),
-               "cluster2_walk": ORDER_COUNTS["cluster2_walk"][:5]}
+               "cluster2_walk": ORDER_COUNTS["cluster2_walk"][:5],
+               "onehot2_walk": ORDER_COUNTS["onehot2_walk"]}
 
 
 def order_mirror(name, args, any_hit, queue=False):
     """The scan-order (queue=False) or queue-order mirror of K4
-    ("tile_walk"; args: the walk's eight positional arguments) or K5
-    ("cluster2_walk"; args: sc_bounds, cbounds, ctable, cluster_tris,
-    gmax, o, d, tmin, tmax, visibility; instance rows) on the kernel's
-    inputs: (hit dict, counts)."""
+    ("tile_walk"; args: the walk's eight positional arguments), K5
+    ("cluster2_walk") or K6 ("onehot2_walk"; args: sc_bounds, cbounds,
+    ctable, cluster_tris, gmax, o, d, tmin, tmax, visibility; instance
+    rows) on the kernel's inputs: (hit dict, counts), for K6 also the
+    warp's inner steps."""
     fn = getattr(module(name), ORDER_MIRRORS[name][int(queue)])
     kw = {"shadow_any_hit": any_hit}
-    if name == "cluster2_walk":
+    if name in TWO_LEVEL:
         kw["has_instances"] = True
     return fn(*args, **kw)
 
 
 def held_to_scan_order(label, name, args, any_hit, got):
-    """Every output of K4 or K5 equal to its scan-order mirror's on every
-    lane, exact-t ties included: the warp visits the earlier design's
-    clusters in that design's order. Returns the mirror's counts."""
-    mirror, counts = order_mirror(name, args, any_hit)
+    """Every output of K4, K5 or K6 equal to its scan-order mirror's on
+    every lane, exact-t ties included: the kernel visits the earlier
+    design's clusters in that design's order. Returns the mirror's
+    counts."""
+    mirror, counts = order_mirror(name, args, any_hit)[:2]
     for k in mirror:
         assert torch.equal(got[k], mirror[k]), \
             f"{label}: output {k} differs from the scan-order mirror's"
@@ -522,7 +553,7 @@ def exact_off_ties(compare):
 
 
 def in_scan_order(compare, name, args, any_hit):
-    """A K4 or K5 case's check: `compare` (for a closest hit t, u, v to
+    """A K4, K5 or K6 case's check: `compare` (for a closest hit t, u, v to
     the bit off the ties), then held_to_scan_order."""
     base = compare if any_hit else exact_off_ties(compare)
 
@@ -544,13 +575,15 @@ def column_stats(cnt, names):
 
 
 def order_count_phase(label, name, args, any_hit):
-    """The counting variant of K4 or K5 on one input: its outputs equal
-    the plain launch's and the scan-order mirror's, and its counts equal
-    the queue-order mirror's on every lane. Prints and returns their
-    per-column stats, with the scan-order mirror's counts (the earlier
-    design's) beside them."""
+    """The counting variant of K4, K5 or K6 on one input: its outputs
+    equal the plain launch's and the scan-order mirror's, and its counts
+    equal the queue-order mirror's on every lane. Prints and returns
+    their per-column stats, with the scan-order mirror's counts (the
+    earlier design's) beside them; for K6 also the warp's inner steps
+    (the sum over its groups of the most rows a lane read) against the
+    rows a lane read."""
     kw = {"shadow_any_hit": any_hit}
-    if name == "cluster2_walk":
+    if name in TWO_LEVEL:
         kw["has_instances"] = True
     kern = wrapper(name)
     ref = kern(*args, **kw)
@@ -559,8 +592,8 @@ def order_count_phase(label, name, args, any_hit):
     assert all(torch.equal(ref[k], got[k]) for k in ref), \
         f"{label}: the counting variant's outputs differ"
     scnt = held_to_scan_order(label, name, args, any_hit, got)
-    _, qcnt = order_mirror(name, args, any_hit, queue=True)
-    assert torch.equal(cnt, qcnt), \
+    queue = order_mirror(name, args, any_hit, queue=True)
+    assert torch.equal(cnt, queue[1]), \
         f"{label}: the counts differ from the queue-order mirror's"
     st = {"kernel": column_stats(cnt, ORDER_COUNTS[name]),
           "earlier design": column_stats(scnt, SCAN_COUNTS[name])}
@@ -572,6 +605,14 @@ def order_count_phase(label, name, args, any_hit):
         f"to the queue-order mirror's on every lane: {fmt(st['kernel'])}; "
         f"the earlier design's (scan-order mirror): "
         f"{fmt(st['earlier design'])}")
+    if name == "onehot2_walk":
+        steps = float(queue[2].to(torch.float64).mean())
+        rows = float(cnt[:, 4].to(torch.float64).mean())
+        st["warp_inner_steps_mean"] = steps
+        st["warp_steps_over_lane_rows"] = steps / max(rows, 1e-30)
+        log(f"[counts] {label}: the warp's inner steps {steps:.2f} a lane "
+            f"against rows read {rows:.2f} a lane (ratio "
+            f"{st['warp_steps_over_lane_rows']:.2f})")
     return st
 
 
@@ -1128,7 +1169,7 @@ def check_cluster2(kg, n_check, rng, kernel="cluster2_walk"):
             sync()
             mode = "any-hit" if any_hit else "closest"
             compare = compare_walk
-            if kernel == "cluster2_walk":
+            if kernel in TWO_LEVEL:
                 compare = in_scan_order(compare_walk, kernel, k5_args(
                     kg, o, d, tmin, tmax, vis), any_hit)
             e = compare(f"{kernel} {mode} {label}", ref, got, any_hit)
@@ -1162,10 +1203,10 @@ def sun_shadow_rays(kg, o, d, rng):
 def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk",
                          counts=None):
     """At side x side lanes (the render's own width): K5 (or K6) closest
-    on the render's recorded input and any-hit on sun shadow rays; K5
-    also any-hit on the render's recorded any-hit input, after its
-    counting variant on both recorded inputs (stats into `counts`); with
-    K6, K5 is timed on the same recorded input beside it."""
+    on the render's recorded input, any-hit on the render's recorded
+    any-hit input and on sun shadow rays, after its counting variant on
+    both recorded inputs (stats into `counts`); with K6, K5 is timed on
+    the same recorded closest-hit input beside it."""
     tag = {"cluster2_walk": "K5", "onehot2_walk": "K6"}[kernel]
     ra = inspect.signature(wrapper(kernel)).bind(
         *rec["args"], **rec["kw"])
@@ -1186,9 +1227,7 @@ def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk",
              torch.full((n,), 128, dtype=torch.int32, device=o.device))
 
     def case(args, any_hit, compare, which=kernel):
-        if which == "cluster2_walk":
-            compare = in_scan_order(compare, which, k5_args(kg, *args),
-                                    any_hit)
+        compare = in_scan_order(compare, which, k5_args(kg, *args), any_hit)
         return (lambda: k5_call(kg, *args, any_hit, which),
                 lambda: k5_call(kg, *args, any_hit, None),
                 which, compare,
@@ -1196,19 +1235,18 @@ def big_main_path_checks(kg, side, rng, card, rec, kernel="cluster2_walk",
 
     cases = {f"{tag} closest render": case(rargs, False, compare_hits),
              f"{tag} any-hit shadow": case(sargs, True, compare_any_hit)}
-    if kernel == "cluster2_walk":
-        ra = inspect.signature(wrapper(kernel)).bind(
-            *rec["any"]["args"], **rec["any"]["kw"])
-        ra.apply_defaults()
-        b = ra.arguments
-        assert b["shadow_any_hit"] and b["o"].shape[0] == n
-        aargs = (b["o"], b["d"], b["tmin"], b["tmax"], b["visibility"])
-        cases[f"{tag} any-hit render"] = case(aargs, True, compare_any_hit)
-        for mode, args, any_hit in (("closest", rargs, False),
-                                    ("any-hit", aargs, True)):
-            counts[f"big_instanced render ({mode})"] = order_count_phase(
-                f"K5 {mode}, big_instanced render", kernel,
-                k5_args(kg, *args), any_hit)
+    ra = inspect.signature(wrapper(kernel)).bind(
+        *rec["any"]["args"], **rec["any"]["kw"])
+    ra.apply_defaults()
+    b = ra.arguments
+    assert b["shadow_any_hit"] and b["o"].shape[0] == n
+    aargs = (b["o"], b["d"], b["tmin"], b["tmax"], b["visibility"])
+    cases[f"{tag} any-hit render"] = case(aargs, True, compare_any_hit)
+    for mode, args, any_hit in (("closest", rargs, False),
+                                ("any-hit", aargs, True)):
+        counts[f"big_instanced render ({mode})"] = order_count_phase(
+            f"{tag} {mode}, big_instanced render", kernel,
+            k5_args(kg, *args), any_hit)
     if kernel == "onehot2_walk":
         cases["K5 closest on K6's render input"] = case(
             rargs, False, compare_hits, "cluster2_walk")
@@ -1811,6 +1849,49 @@ def cap_checks(dev, rng, card, n=N_CHECK):
     return times, errs, counts
 
 
+def k6_cap_checks(dev, rng, card, n=N_CHECK):
+    """K6 on a synthetic two-level table at the JAX package's caps
+    (K6_CAP: 512 superclusters of 16 clusters of 38 random triangles,
+    each supercluster an instance; ops/onehot2_walk.py grid_tables2) and
+    n random rays from around it, closest and any hit: the counting
+    variant held to the queue-order mirror, the kernel to its plain
+    version (t, u, v to the bit off exact-t ties) and to its scan-order
+    mirror on every lane, and timed. Returns (times, errors, counts)."""
+    sc, g, ct = K6_CAP
+    scb, cb, ctab = module("onehot2_walk").grid_tables2(sc, g, ct, rng, dev)
+    kg = {"dscene": {"sc_bounds": scb, "cluster_bounds": cb,
+                     "cluster_table": ctab},
+          "cluster_tris": ct, "sc_gmax": g}
+    span = 100.0 * round(sc ** (1.0 / 3.0))
+    o, d = random_rays(n, rng, dev, (-0.25 * span,) * 3, (1.25 * span,) * 3)
+    tmin = torch.full((n,), 1e-4, device=dev)
+    tmaxc = torch.tensor(rng.uniform(10, 2 * span, n).astype(np.float32),
+                         device=dev)
+    tmaxa = torch.tensor(np.where(rng.uniform(size=n) < 0.5,
+                                  rng.uniform(10, span, n), 1e30)
+                         .astype(np.float32), device=dev)
+    vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
+    log(f"[cap] K6: {sc} superclusters x {g} clusters x {ct} triangles, "
+        f"{ctab.numel() * 4 / 1e6:.1f} MB of rows")
+    counts, cases = {}, {}
+    for mode, tmax, any_hit, compare in (
+            ("closest", tmaxc, False, compare_hits),
+            ("any-hit", tmaxa, True, compare_any_hit)):
+        args = (o, d, tmin, tmax, vis)
+        counts[f"{sc} superclusters ({mode})"] = order_count_phase(
+            f"K6 {mode}, {sc} superclusters", "onehot2_walk",
+            k5_args(kg, *args), any_hit)
+        cases[f"K6 {mode} at {sc} superclusters"] = (
+            lambda a=args, h=any_hit: k5_call(kg, *a, h, "onehot2_walk"),
+            lambda a=args, h=any_hit: k5_call(kg, *a, h, None),
+            "onehot2_walk",
+            in_scan_order(compare, "onehot2_walk", k5_args(kg, *args),
+                          any_hit),
+            lambda out, a=args, h=any_hit: cluster2_bound(kg, a, h, out))
+    times, errs = timed_cases(cases, n, card)
+    return times, errs, counts
+
+
 def merge(errs, new):
     """Keep the largest error per kernel."""
     for k, v in new.items():
@@ -1964,9 +2045,15 @@ def main():
         card, "example:big_instanced:onehot2", 256, 16, JAX_MEAN_BIG_256,
         0.005, ("onehot2_walk",), chunk=8)
     assert o_launch["cluster2_walk"] == 0
+    counts["onehot2_walk"] = {}
     o_times, e = big_main_path_checks(bkg, 256, rng, card,
-                                      o_rec["onehot2_walk"], "onehot2_walk")
+                                      o_rec["onehot2_walk"], "onehot2_walk",
+                                      counts=counts["onehot2_walk"])
     merge(errs, e)
+    k6_times, e, k6_counts = k6_cap_checks(dev, rng, card)
+    merge(errs, e)
+    o_times.update(k6_times)
+    counts["onehot2_walk"].update(k6_counts)
 
     # ---- glossy_nee_mis, fused-NEE mode: 26. kernel checks; 27. accuracy;
     # 28. full width; 29. main-path shapes ----

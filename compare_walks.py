@@ -1,31 +1,36 @@
-"""K4 and K5, the tile-shared walks, of an earlier checkout and of this one
-on one card, on the inputs of the full-width renders and at the
-single-level cap.
+"""K4 and K5, the tile-shared walks, or K6, the two-level per-lane walk,
+of an earlier checkout and of this one on one card, on the inputs of the
+full-width renders and at the caps.
 
-    python3 compare_walks.py PARENT_DIR [--queues 2,4,8,16] [--no-time] \
-        [--out FILE.json]
+    python3 compare_walks.py PARENT_DIR [--kernel k45|k6] \
+        [--queues 2,4,8,16] [--gqueues 4,8,16] [--no-time] [--out FILE.json]
 
 PARENT_DIR is a checkout of the earlier design (for instance the parent
 commit unpacked with `git archive` into build/parent). The script
 
-1. builds PARENT_DIR's csrc/tile_walk.cu and csrc/cluster2_walk.cu, and
-   this tree's at each queue length of --queues (-DK4_QUEUE=q
-   -DK5_QUEUE=q), with kernels.py's nvcc flags, one nvcc call each, all
-   started together, into build/compare_walks/, and prints each kernel's
-   registers and spills (ptxas -v);
+1. builds PARENT_DIR's kernels and this tree's at each queue length, with
+   kernels.py's nvcc flags, one nvcc call each, all started together,
+   into build/compare_walks/, and prints each kernel's registers and
+   spills (ptxas -v): with --kernel k45 (the default) csrc/tile_walk.cu
+   and csrc/cluster2_walk.cu at each q of --queues (-DK4_QUEUE=q
+   -DK5_QUEUE=q); with --kernel k6 csrc/onehot2_walk.cu at each q of
+   --queues and each g of --gqueues (-DK6_QUEUE=q -DK6_GQUEUE=g);
 2. records the inputs of the third K4 call of volume_sss 256x256x32
    chunk 16 (examples.VOLUME_SSS_DISPATCH) and of the third closest-hit
-   and the third any-hit K5 call of big_instanced 256x256x16 chunk 8, each
-   render stopped once its calls are copied, and builds the 640-cluster
-   grid table (ops/tile_walk.py grid_tables) with 65,536 random rays
-   around it, closest and any hit;
+   and the third any-hit K5 call of big_instanced 256x256x16 chunk 8 (k6:
+   of K6 in example:big_instanced:onehot2), each render stopped once its
+   calls are copied, and builds the 640-cluster grid table
+   (ops/tile_walk.py grid_tables; k6: the two-level table at the caps,
+   512 superclusters of 16 clusters, ops/onehot2_walk.py grid_tables2)
+   with 65,536 random rays around it, closest and any hit;
 3. on each input runs the scan-order mirror (ops/tile_walk.py
-   tile_scan_order, ops/cluster2_walk.py cluster2_scan_order: the earlier
-   design's visit order and counts) and the queue-order mirror at each
-   queue length, and holds both designs' kernels to them: t equal to the
-   plain version's to the bit (closest hit), every output equal to the
-   scan mirror's on every lane, ties included, and this tree's counting
-   variant's counts equal to the queue mirror's at its length;
+   tile_scan_order, ops/cluster2_walk.py cluster2_scan_order,
+   ops/onehot2_walk.py onehot2_scan_order: the earlier design's visit
+   order and counts) and the queue-order mirror at each queue length, and
+   holds both designs' kernels to them: t, u, v equal to the plain
+   version's to the bit off exact-t ties (closest hit), every output equal
+   to the scan mirror's on every lane, ties included, and this tree's
+   counting variant's counts equal to the queue mirror's at its lengths;
 4. unless --no-time, times every kernel three times, each the median of
    20 runs (CUDA events), in turns.
 
@@ -53,8 +58,10 @@ import chip_smoke as cs
 from chip_smoke import log
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("tile_walk.cu", "cluster2_walk.cu")
-ENTRY = {"tile_walk.cu": "rt_tile_walk", "cluster2_walk.cu": "rt_cluster2_walk"}
+SOURCES = {"k45": ("tile_walk.cu", "cluster2_walk.cu"),
+           "k6": ("onehot2_walk.cu",)}
+ENTRY = {"tile_walk.cu": "rt_tile_walk", "cluster2_walk.cu": "rt_cluster2_walk",
+         "onehot2_walk.cu": "rt_onehot2_walk"}
 RUNS = 20
 SPAN = 30.0 * 9   # the grid table's extent (ops/tile_walk.py grid_tables)
 
@@ -74,18 +81,29 @@ def _kernels_module(tree):
     return mod
 
 
-def build(parent, queues):
-    """{(design, source): C entry point}; design "parent" or "Q<q>"."""
+def designs(kernel, queues, gqueues):
+    """{design: (its -D flags, its queue mirror's keyword arguments)} of
+    this tree's kernels: "Q<q>" (k45) or "Q<q>G<g>" (k6)."""
+    if kernel == "k45":
+        return {f"Q{q}": ([f"-DK4_QUEUE={q}", f"-DK5_QUEUE={q}"],
+                          {"queue": q}) for q in queues}
+    return {f"Q{q}G{g}": ([f"-DK6_QUEUE={q}", f"-DK6_GQUEUE={g}"],
+                          {"queue": q, "gqueue": g})
+            for q in queues for g in gqueues}
+
+
+def build(parent, kernel, plan):
+    """{(design, source): C entry point}; design "parent" or one of
+    `plan`'s."""
     from raytracingproject_tpu_torch import kernels
     out_dir = os.path.join(ROOT, "build", "compare_walks")
     os.makedirs(out_dir, exist_ok=True)
     mods = {"parent": _kernels_module(parent), "this": kernels}
     jobs = {}
-    for src in SOURCES:
+    for src in SOURCES[kernel]:
         jobs[("parent", src)] = (mods["parent"], [])
-        for q in queues:
-            jobs[(f"Q{q}", src)] = (kernels, [f"-DK4_QUEUE={q}",
-                                              f"-DK5_QUEUE={q}"])
+        for design, (defs, _kw) in plan.items():
+            jobs[(design, src)] = (kernels, defs)
     nvcc = kernels.nvcc_path()
     procs = {}
     t0 = time.perf_counter()
@@ -149,7 +167,8 @@ def record(spec, width, spp, chunk, name, want, device="cuda"):
     from raytracingproject_tpu_torch.app import cli
     mod = importlib.import_module(f"raytracingproject_tpu_torch.ops.{name}")
     fn_name = {"tile_walk": "intersect_clusters_tile",
-               "cluster2_walk": "intersect_clusters2_walk"}[name]
+               "cluster2_walk": "intersect_clusters2_walk",
+               "onehot2_walk": "intersect_clusters2_onehot"}[name]
     orig = getattr(mod, fn_name)
     calls = {False: 0, True: 0}
     store = {}
@@ -180,6 +199,40 @@ def record(spec, width, spp, chunk, name, want, device="cuda"):
         setattr(mod, fn_name, orig)
     assert len(store) == len(want), f"{spec}: calls not reached"
     return store
+
+
+def inputs_k6(rng):
+    """{label: {"src", "args", "any_hit"}}: K6's recorded render inputs
+    and the two-level table at the caps under random rays."""
+    from raytracingproject_tpu_torch.ops import onehot2_walk as k6
+    rec = record("example:big_instanced:onehot2", 256, 16, 8, "onehot2_walk",
+                 {"K6 closest big_instanced render": (3, False),
+                  "K6 any big_instanced render": (3, True)})
+    out = {}
+    for label, a in rec.items():
+        assert a["has_instances"]
+        out[label] = {"src": "onehot2_walk.cu", "args": a,
+                      "any_hit": bool(a["shadow_any_hit"])}
+    sc, g, ct = cs.K6_CAP
+    scb, cb, ctab = k6.grid_tables2(sc, g, ct, rng, "cuda")
+    span = 100.0 * round(sc ** (1.0 / 3.0))
+    n = 65536
+    o, d = cs.random_rays(n, rng, "cuda", (-0.25 * span,) * 3,
+                          (1.25 * span,) * 3)
+    tmaxc = torch.tensor(rng.uniform(10, 2 * span, n).astype(np.float32),
+                         device="cuda")
+    tmaxa = torch.tensor(np.where(rng.uniform(size=n) < 0.5,
+                                  rng.uniform(10, span, n), 1e30)
+                         .astype(np.float32), device="cuda")
+    for mode, tmax in (("closest", tmaxc), ("any", tmaxa)):
+        out[f"K6 {mode} at {sc} superclusters"] = {
+            "src": "onehot2_walk.cu", "any_hit": mode == "any",
+            "args": {"sc_bounds": scb, "cbounds": cb, "ctable": ctab,
+                     "cluster_tris": ct, "gmax": g, "o": o, "d": d,
+                     "tmin": torch.full((n,), 1e-4, device="cuda"),
+                     "tmax": tmax, "visibility": torch.ones(
+                         n, dtype=torch.int32, device="cuda")}}
+    return out
 
 
 def inputs(rng):
@@ -222,32 +275,37 @@ def inputs(rng):
     return out
 
 
-def mirrors(inp, queues):
-    """(plain hit, (scan hit, scan counts), {q: (queue hit, counts)})."""
+def mirrors(inp, plan):
+    """(plain hit, scan mirror's (hit, counts[, warp steps]), {design:
+    queue mirror's (hit, counts[, warp steps])})."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     a = inp["args"]
     walk = (a["cbounds"], a["ctable"], a["cluster_tris"], a["o"], a["d"],
             a["tmin"], a["tmax"], a["visibility"])
     plain = ci.intersect_clusters(*walk, shadow_any_hit=inp["any_hit"],
                                   has_instances="sc_bounds" in a)
+    name = inp["src"][:-3]
     if "sc_bounds" in a:
-        name, args = "cluster2_walk", (a["sc_bounds"], *walk[:3], a["gmax"],
-                                       *walk[3:])
+        args = (a["sc_bounds"], *walk[:3], a["gmax"], *walk[3:])
     else:
-        name, args = "tile_walk", walk
+        args = walk
     mod = cs.module(name)
     kw = {"shadow_any_hit": inp["any_hit"]}
-    if name == "cluster2_walk":
+    if name in cs.TWO_LEVEL:
         kw["has_instances"] = True
-    queue = {q: getattr(mod, cs.ORDER_MIRRORS[name][1])(*args, queue=q, **kw)
-             for q in queues}
+    queue = {design: getattr(mod, cs.ORDER_MIRRORS[name][1])(*args, **qkw,
+                                                             **kw)
+             for design, (_defs, qkw) in plan.items()}
     return plain, cs.order_mirror(name, args, inp["any_hit"]), queue
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("parent")
+    p.add_argument("--kernel", choices=("k45", "k6"), default="k45")
     p.add_argument("--queues", default="2,4,8,16")
+    p.add_argument("--gqueues", default="4,8,16",
+                   help="K6's group-level queue lengths (--kernel k6)")
     p.add_argument("--no-time", action="store_true")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
@@ -256,13 +314,17 @@ def main(argv=None):
         return 2
     from raytracingproject_tpu_torch.device import get_device
     from raytracingproject_tpu_torch.ops import cluster2_walk as k5
+    from raytracingproject_tpu_torch.ops import onehot2_walk as k6
     from raytracingproject_tpu_torch.ops import tile_walk as k4
     get_device("cuda")   # TF32 off
     card = cs.card_line()
     log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    queues = [int(q) for q in args.queues.split(",")]
-    lands = {"tile_walk.cu": k4.QUEUE, "cluster2_walk.cu": k5.SC_QUEUE}
-    fns = build(os.path.abspath(args.parent), queues)
+    plan = designs(args.kernel, [int(q) for q in args.queues.split(",")],
+                   [int(g) for g in args.gqueues.split(",")])
+    lands = {"tile_walk.cu": f"Q{k4.QUEUE}",
+             "cluster2_walk.cu": f"Q{k5.SC_QUEUE}",
+             "onehot2_walk.cu": f"Q{k6.SC_QUEUE}G{k6.G_QUEUE}"}
+    fns = build(os.path.abspath(args.parent), args.kernel, plan)
     rng = np.random.default_rng(11)
     report = {"card": card, "inputs": {}}
     failed = []
@@ -270,11 +332,12 @@ def main(argv=None):
         f"{k} " + "/".join(f"{v[q]:.2f}" for q in ("mean", "p50", "p99",
                                                    "max"))
         for k, v in st.items())
-    for label, inp in inputs(rng).items():
+    for label, inp in (inputs_k6 if args.kernel == "k6"
+                       else inputs)(rng).items():
         src = inp["src"]
         name = src[:-3]
         n = inp["args"]["o"].shape[0]
-        plain, (scan, scnt), queue = mirrors(inp, queues)
+        plain, (scan, scnt, *ssteps), queue = mirrors(inp, plan)
         torch.cuda.synchronize()
         rep = report["inputs"][label] = {
             "lanes": n, "any_hit": inp["any_hit"],
@@ -284,20 +347,32 @@ def main(argv=None):
         log(f"[{label}] {n} lanes, hit {rep['hit']:.4f}")
         log(f"[{label}] scan-order counts (mean/p50/p99/max): "
             f"{fmt(rep['scan_counts'])}")
-        shared = len(cs.SCAN_COUNTS[name]) - 1   # all but the scan's own
-        for q, (qhit, qcnt) in queue.items():
+        if ssteps:   # K6: the warp's inner steps against a lane's rows
+            steps = float(ssteps[0].to(torch.float64).mean())
+            rows = float(scnt[:, 4].to(torch.float64).mean())
+            rep["warp_inner_steps_mean"] = steps
+            rep["warp_steps_over_lane_rows"] = steps / max(rows, 1e-30)
+            log(f"[{label}] the warp's inner steps {steps:.2f} a lane, rows "
+                f"read {rows:.2f} a lane (ratio "
+                f"{rep['warp_steps_over_lane_rows']:.2f})")
+        # the counts both designs share: all but the scan's own (K4, K5)
+        shared = (list(k6.SHARED_COUNTS) if name == "onehot2_walk"
+                  else list(range(len(cs.SCAN_COUNTS[name]) - 1)))
+        for design, (qhit, qcnt, *qsteps) in queue.items():
             same = all(torch.equal(qhit[k], scan[k]) for k in scan) and \
-                torch.equal(qcnt[:, :shared], scnt[:, :shared])
-            rep["queue_counts"][q] = cs.column_stats(qcnt,
-                                                     cs.ORDER_COUNTS[name])
-            log(f"[{label}] queue-order Q={q} (outputs and steps equal the "
-                f"scan's: {same}): {fmt(rep['queue_counts'][q])}")
+                torch.equal(qcnt[:, shared], scnt[:, shared]) and \
+                all(torch.equal(a, b) for a, b in zip(qsteps, ssteps))
+            rep["queue_counts"][design] = cs.column_stats(
+                qcnt, cs.ORDER_COUNTS[name])
+            log(f"[{label}] queue-order {design} (outputs and steps equal "
+                f"the scan's: {same}): {fmt(rep['queue_counts'][design])}")
             if not same:
-                failed.append(f"{label}: queue mirror Q={q} != scan mirror")
+                failed.append(f"{label}: queue mirror {design} != scan "
+                              "mirror")
         agree = (plain["prim"] == scan["prim"]) & \
             (plain["object"] == scan["object"])
-        designs = ["parent"] + [f"Q{q}" for q in queues]
-        for design in designs:
+        designs_ = ["parent"] + list(plan)
+        for design in designs_:
             fn = fns[(design, src)]
             got = launch(fn, src, inp)
             torch.cuda.synchronize()
@@ -316,7 +391,7 @@ def main(argv=None):
                 cgot = launch(fn, src, inp, cnt)
                 torch.cuda.synchronize()
                 chk["counts_equal_queue_mirror"] = bool(
-                    torch.equal(cnt, queue[int(design[1:])][1]))
+                    torch.equal(cnt, queue[design][1]))
                 chk["counting_outputs_equal"] = all(
                     torch.equal(cgot[k], got[k]) for k in got)
                 ok = ok and chk["counts_equal_queue_mirror"] \
@@ -327,9 +402,9 @@ def main(argv=None):
                 failed.append(f"{label}: {design}")
         if args.no_time:
             continue
-        runs = {dsg: [] for dsg in designs}
+        runs = {dsg: [] for dsg in designs_}
         for r in range(3):
-            for design in (designs if r % 2 == 0 else designs[::-1]):
+            for design in (designs_ if r % 2 == 0 else designs_[::-1]):
                 fn = fns[(design, src)]
                 runs[design].append(cs.median_ms(
                     lambda: launch(fn, src, inp), RUNS))
@@ -338,7 +413,7 @@ def main(argv=None):
                                  "min": min(x), "max": max(x), "runs": x}
             log(f"[time] {label} {design}: {np.median(x):.4f} ms "
                 f"({min(x):.4f}-{max(x):.4f}, three timings of {RUNS} runs)"
-                f"{' <- lands' if design == f'Q{lands[src]}' else ''} "
+                f"{' <- lands' if design == lands[src] else ''} "
                 f"({card})")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

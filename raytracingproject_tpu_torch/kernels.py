@@ -55,10 +55,10 @@ SIGNATURES = {
     "cluster2_walk.cu": {"rt_cluster2_walk": [
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P]},
-    # K6 takes K5's arguments but counts
+    # K6 takes K5's arguments (counts: (N, 8) int32 or null)
     "onehot2_walk.cu": {"rt_onehot2_walk": [
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P]},
+        _P, _P, _P, _P, _P, _P, _P]},
     # cbounds ctable C W ct | o d tmin tmax vis of the closest ray | the
     # same of the any-hit ray | n t prim u v obj blocked counts stream
     "dual_walk.cu": {"rt_dual_walk": [
