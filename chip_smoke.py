@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's seven main paths (raytracingproject_tpu_torch) and its
-adaptive loop on the card and fails (nonzero exit, no result line) if any
+Drives the port's main paths (raytracingproject_tpu_torch) and its
+adaptive loops on the card and fails (nonzero exit, no result line) if any
 phase fails:
 
 1. environment: CUDA present; card name and power limit (nvidia-smi),
@@ -207,6 +207,39 @@ the JAX package's single-level cap:
    to its scan-order mirror on every lane) and timed, and K4's counting
    variant is held to the queue-order mirror there.
 
+dof_motion_adaptive (the glossy box through a 12-unit six-bladed lens from
+a camera that moves 25 units over the shutter, adaptive sampling at
+threshold 0.02; only the camera is new, so K2 and K3 as for glossy):
+
+32. kernels vs plain versions on the dof tables: 65,536 lens-and-motion
+   camera rays (ops/camera.py camera_sample_ray at random raster, lens
+   and shutter samples) and NEE shadow rays from their first hits: K2
+   closest to the bit, K2 any hit (camera and shadow rays) with equal
+   masks, K3's surface form to the bit;
+33. accuracy: the fixed 64x64, 128 spp, chunk 16 render, clamp off,
+   against the JAX package's render of it in float64 throughout, its
+   camera's motion included (TWIN_DOF; rmse <= 1.2e-5, twice the JAX
+   package's own float32 render against twin_f64; <= 0.07% of pixels
+   off by more than 1e-3); the rmse against
+   twin_f64.npz["dof_motion_adaptive"] is logged beside it;
+34. full width, 256x256, 64 spp, chunk 32: (a) the fixed render of the
+   CLI's scene (session/session.py render_fixed): finite, mean within 0.5%
+   of the JAX package's mean for the same render (JAX_MEAN_DOF_256); (b)
+   the CLI's own render (example:dof_motion), which takes the session's
+   adaptive branch: finite, mean within 1% of JAX_MEAN_DOF_256, K2 and K3
+   launched and no other walk, the inputs of each kernel's third call
+   copied; (c) session/adaptive.py render_adaptive_device under bench.py
+   bench_adaptive's protocol (lanes W * H, min_samples 16, chunk 16):
+   converged, fewer samples than nominal, finite, mean within 1% of (a)'s
+   and of JAX_MEAN_DOF_256;
+35. main-path shapes: the counting variants of K2 and K3 on the copied
+   inputs (outputs equal to the plain launch's), their rows and boxes per
+   lane printed beside glossy's; both held against their plain versions
+   on the copied inputs to the bit and timed; then the fixed render, the
+   CLI's adaptive render and render_adaptive_device, one warm-up and
+   three renders each in turns, Msamples/s as the nominal budget over
+   the wall time (median, min-max).
+
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. A kernel's
 time is the median of three timings, each the median of 20 runs. Each
@@ -216,7 +249,7 @@ must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
 H100 SXM's published peaks). The earlier designs' times are measured by
 compare_walks.py (K4, K5; K6 with --kernel k6) and recorded in PERF.md,
 not here. The script
-takes about 6 minutes, the kernels' build included.
+takes about 8 minutes, the kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
 describing each kernel, and {"ok": true, "device": {...}}.
@@ -314,6 +347,25 @@ CAP_CLUSTERS = 640
 # take 512), clusters a group, triangles a cluster (big_instanced's 38):
 # 8,192 rows, 15.4 MB
 K6_CAP = (512, 16, 38)
+# dof_motion_adaptive 256x256x64, chunks of 32, default clamp (the JAX
+# package's render_samples_regen on the CPU, float64 sum; python -m
+# tests.test_torch_dof_render mean 256 64 32)
+JAX_MEAN_DOF_256 = 0.17784439539401029
+DOF_SIZE, DOF_SPP, DOF_CHUNK = 256, 64, 32
+DOF_THRESHOLD, DOF_MIN_SAMPLES = 0.02, 16
+# its 64x64x128 gate: twice the JAX package's own f32 render against
+# twin_f64 (rmse 6.02e-6, artifacts/RMSE_r04.json), glossy's share of
+# pixels off by more than 1e-3. The reference is the JAX package's render
+# in float64 throughout (python -m tests.test_torch_dof_render twin
+# TWIN_DOF): twin_f64 computes the camera's motion in float32 (the dtype
+# of its motion record), so its camera-to-world rounds by a float32 ulp
+# or two, differently under each compilation of the loop, and camera rays
+# that graze a glossy sphere turn with it (pixels (3, 1), (10, 39) and
+# (56, 11) of twin_f64 change with the loop and the wavefront's shape)
+DOF_RMSE_GATE, DOF_FRAC_GATE = 1.2e-5, 0.0007
+TWIN_DOF = "raytracingproject_tpu_torch/data/twin_dof_motion.npz"
+# timed renders per driver in the fixed-vs-adaptive measurement
+DOF_RENDERS = 3
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -1025,9 +1077,12 @@ def volume_main_path_checks(kg, side, card, rec):
 
 
 def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128,
-             twin=None, twin_f32=None):
-    """The scene's 64x64 x spp render, clamp off, vs the float64 twin."""
-    from raytracingproject_tpu_torch.session.session import render
+             twin=None, twin_f32=None, also=()):
+    """The scene's fixed 64x64 x spp render (every pixel spp samples, also
+    for a scene that declares adaptive sampling), clamp off, vs the
+    float64 twin; the rmse against each (label, image) of `also` is
+    logged."""
+    from raytracingproject_tpu_torch.session.session import render_fixed
     if twin is None:
         twin = np.load(TWIN)[twin_key]
         twin_f32 = np.load(TWIN_F32)[twin_key]
@@ -1036,7 +1091,7 @@ def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128,
     kg = scene.make_kernel_globals(dev)
     kg.update(flags)
     t0 = time.perf_counter()
-    img = render(scene, spp, chunk=16, device=dev, kg=kg)
+    img = render_fixed(kg, spp, chunk=16)
     dt = time.perf_counter() - t0
     assert np.isfinite(img).all() and img.shape == twin.shape
     diff = img.astype(np.float64) - twin
@@ -1044,11 +1099,22 @@ def accuracy(dev, twin_key, scene, flags, rmse_gate, frac_gate, spp=128,
     frac = float((np.abs(diff).sum(-1) > 1e-3).mean())
     d32 = img.astype(np.float64) - twin_f32
     size = img.shape[0]
+    off = np.abs(diff).sum(-1)
+    worst = np.unravel_index(int(np.argmax(off)), off.shape)
+    rest = np.sqrt((np.sum(diff * diff) - np.sum(diff[worst] ** 2))
+                   / (diff.size - 3))
     log(f"[accuracy] {twin_key} {size}x{size}x{spp} in {dt:.2f} s: rmse vs "
         f"twin_f64 {rmse:.3e} (gate {rmse_gate}), pixels off >1e-3 "
         f"{frac:.5f} (gate {frac_gate}), rmse vs twin_f32 "
         f"{np.sqrt(np.mean(d32 * d32)):.3e}, mean {img.mean():.6f} vs twin "
-        f"{twin.mean():.6f}")
+        f"{twin.mean():.6f}; worst pixel (row, column) "
+        f"{tuple(map(int, worst))} off by {off[worst]:.3e} (sum over RGB; "
+        f"port {np.round(img[worst], 8).tolist()}, twin "
+        f"{np.round(twin[worst], 8).tolist()}), rmse without it {rest:.3e}")
+    for label, ref in also:
+        d = img.astype(np.float64) - ref
+        log(f"[accuracy] {twin_key}: rmse vs {label} "
+            f"{np.sqrt(np.mean(d * d)):.3e}")
     assert rmse <= rmse_gate and frac <= frac_gate, \
         f"{twin_key}: accuracy gate failed"
     return float(twin.mean())
@@ -1892,6 +1958,181 @@ def k6_cap_checks(dev, rng, card, n=N_CHECK):
     return times, errs, counts
 
 
+def dof_camera_rays(kg, rng):
+    """Lens-and-motion camera rays (ops/camera.py camera_sample_ray), one
+    per pixel of kg's film at a random point of the pixel, with random
+    lens and shutter samples."""
+    from raytracingproject_tpu_torch.ops import camera as cam_ops
+    cam = kg["cam"]
+    w, h = int(cam["width"]), int(cam["height"])
+    dev = kg["filter_table"].device
+    yy, xx = np.mgrid[0:h, 0:w]
+    u = rng.uniform(size=(5, w * h))
+    lane = [torch.tensor(a.astype(np.float32), device=dev)
+            for a in (xx.reshape(-1) + u[0], yy.reshape(-1) + u[1], *u[2:])]
+    ray = cam_ops.camera_sample_ray(cam, *lane)
+    return ray["o"].contiguous(), ray["d"].contiguous()
+
+
+def check_dof_walks(kg, rng):
+    """K2 closest (to the bit) and any hit (masks) and K3's surface form
+    (to the bit) against their plain versions on the dof tables: 65,536
+    lens-and-motion camera rays and NEE shadow rays from their first
+    hits."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    cb, ct_, cbd = ds["cluster_bounds"], ds["cluster_table"], \
+        ds["cluster_boundary"]
+    ctris = int(kg["cluster_tris"])
+    o, d = dof_camera_rays(kg, rng)
+    n = o.shape[0]
+    spread = (o.max(0).values - o.min(0).values).cpu().numpy()
+    log(f"[kernels] dof camera rays: {n} lanes, origins spread "
+        f"{np.round(spread, 3).tolist()} (aperture 12, shutter shift 25)")
+    assert spread[0] > 25.0, "the camera rays leave one point"
+    zeros = torch.zeros(n, device=o.device)
+    cam = (cb, ct_, ctris, o, d, zeros, torch.full((n,), 1e30,
+                                                   device=o.device),
+           torch.full((n,), 1, dtype=torch.int32, device=o.device))
+    so, sd, stmin, stmax = shadow_rays(kg, o, d, rng)
+    shadow = (cb, ct_, ctris, so, sd, stmin, stmax,
+              torch.full((n,), 128, dtype=torch.int32, device=o.device))
+    errs = {"cluster_walk": 0.0}
+    for label, args, any_hit in (("camera closest", cam, False),
+                                 ("camera any-hit", cam, True),
+                                 ("shadow any-hit", shadow, True)):
+        ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit)
+        got = wrapper("cluster_walk")(*args, shadow_any_hit=any_hit)
+        sync()
+        compare = compare_any_hit if any_hit else exactly(compare_hits)
+        errs["cluster_walk"] = max(errs["cluster_walk"], compare(
+            f"cluster_walk {label} dof", ref, got))
+    occ = (cb, ct_, cbd, ctris, so, sd, stmin, stmin, stmax, 1, 128)
+    ref = ci.occlusion_clusters(*occ)
+    got = wrapper("occlusion_walk")(*occ)
+    sync()
+    errs["occlusion_walk"] = exactly(compare_occlusion)(
+        "occlusion_walk surface shadow dof", ref, got)
+    return errs
+
+
+def dof_fixed_render(kg, card):
+    """Phase 34 (a): the fixed render of the CLI's example:dof_motion
+    scene, compiled into kg, through session.render_fixed (the CLI itself
+    renders the scene adaptively, as the scene declares). Returns
+    (launches, stats, image mean)."""
+    from raytracingproject_tpu_torch.session.session import render_fixed
+    t1 = time.perf_counter()
+    reset_launches()
+    img = render_fixed(kg, DOF_SPP, DOF_CHUNK)
+    sync()
+    t2 = time.perf_counter()
+    launches = {name: launches_of(name) for name in WRAPPERS}
+    mean = float(img.astype(np.float64).mean())
+    rel = abs(mean / JAX_MEAN_DOF_256 - 1.0)
+    st = {"render_s": t2 - t1,
+          "msamples_per_s": DOF_SIZE * DOF_SIZE * DOF_SPP / (t2 - t1) / 1e6}
+    log(f"[render] dof_motion fixed {DOF_SIZE}x{DOF_SIZE}x{DOF_SPP} chunk "
+        f"{DOF_CHUNK}: {st['render_s']:.3f} s, {st['msamples_per_s']:.4f} "
+        f"Msamples/s on {card}; mean "
+        f"{mean:.8f} (JAX package {JAX_MEAN_DOF_256:.8f}, rel {rel:.2e}); "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    assert img.shape == (DOF_SIZE, DOF_SIZE, 3) and np.isfinite(img).all()
+    assert rel <= 0.005, "dof fixed render: mean off the JAX package's"
+    return launches, st, mean
+
+
+def dof_device_adaptive(kg, card, fixed_mean):
+    """Phase 34 (c): render_adaptive_device under bench.py
+    bench_adaptive's protocol (lanes W * H, min_samples 16, chunk
+    min_samples * W * H / lanes); returns (stats, wall s)."""
+    from raytracingproject_tpu_torch.session.adaptive import \
+        render_adaptive_device
+    lanes = DOF_SIZE * DOF_SIZE
+    walls = []
+    t0 = time.perf_counter()
+    L, _A, counts, st = render_adaptive_device(
+        kg, DOF_SIZE, DOF_SIZE, DOF_SPP, threshold=DOF_THRESHOLD,
+        min_samples=DOF_MIN_SAMPLES,
+        chunk=DOF_MIN_SAMPLES * DOF_SIZE * DOF_SIZE // lanes, lanes=lanes,
+        on_dispatch=walls.append)
+    sync()
+    wall = time.perf_counter() - t0
+    img = L.astype(np.float64) / np.maximum(counts, 1)[:, None]
+    mean = float(img.mean())
+    log(f"[adaptive] dof_motion render_adaptive_device {DOF_SIZE}x"
+        f"{DOF_SIZE}, budget {DOF_SPP}, min_samples {DOF_MIN_SAMPLES}, "
+        f"threshold {DOF_THRESHOLD}: {wall:.3f} s, "
+        f"{st['samples_nominal'] / wall / 1e6:.4f} Msamples/s (nominal "
+        f"budget over the wall time) on {card}; {st['dispatches']} rounds "
+        f"({', '.join(f'{w:.3f}' for w in walls)} s), "
+        f"{st['samples_rendered']} of {st['samples_nominal']} samples, "
+        f"counts {st['min_samples']}..{st['max_samples']}; mean {mean:.8f} "
+        f"(fixed {fixed_mean:.8f}, rel {abs(mean / fixed_mean - 1):.2e}; "
+        f"JAX package rel {abs(mean / JAX_MEAN_DOF_256 - 1):.2e})")
+    assert np.isfinite(img).all() and st["converged"]
+    assert st["samples_rendered"] < st["samples_nominal"]
+    assert abs(mean / fixed_mean - 1.0) <= 0.01
+    assert abs(mean / JAX_MEAN_DOF_256 - 1.0) <= 0.01
+    return st, wall
+
+
+def dof_fixed_vs_adaptive(dev, card, kg):
+    """Phase 35: the fixed render, the CLI's adaptive render and
+    render_adaptive_device, one warm-up and DOF_RENDERS timed renders
+    each, in turns; Msamples/s counts the nominal budget over the wall
+    time. Returns {driver: [Msamples/s]}."""
+    from raytracingproject_tpu_torch.app import cli
+    from raytracingproject_tpu_torch.session.adaptive import \
+        render_adaptive_device
+    from raytracingproject_tpu_torch.session.session import (
+        render, render_fixed)
+    scene, _flags = cli.load_scene("example:dof_motion")
+    nominal = DOF_SIZE * DOF_SIZE * DOF_SPP
+    drivers = {
+        "fixed": lambda: render_fixed(kg, DOF_SPP, DOF_CHUNK),
+        "session adaptive": lambda: render(scene, DOF_SPP, chunk=DOF_CHUNK,
+                                           device=dev, kg=kg),
+        "device adaptive": lambda: render_adaptive_device(
+            kg, DOF_SIZE, DOF_SIZE, DOF_SPP, threshold=DOF_THRESHOLD,
+            min_samples=DOF_MIN_SAMPLES, chunk=DOF_MIN_SAMPLES,
+            lanes=DOF_SIZE * DOF_SIZE)}
+    rates = {k: [] for k in drivers}
+    for i in range(DOF_RENDERS + 1):
+        for name, fn in drivers.items():
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            if i:
+                wall = time.perf_counter() - t0
+                rates[name].append(nominal / wall / 1e6)
+    for name, r in rates.items():
+        log(f"[render] dof_motion {name}: {np.median(r):.4f} Msamples/s "
+            f"(median of {DOF_RENDERS} after a warm-up, {min(r):.4f}-"
+            f"{max(r):.4f}; nominal budget over the wall time) on {card}")
+    return rates
+
+
+def dof_main_path_checks(kg, card, rec):
+    """Phase 35: K2 closest and K3's surface form held against their plain
+    versions on the dof render's recorded inputs (to the bit) and
+    timed."""
+    n = rec["cluster_walk"]["args"][4].shape[0]
+    kinds, shares = _lane_visibility("cluster_walk", rec["cluster_walk"])
+    log(f"[main-path] recorded dof K2 input: visibility values {kinds}, "
+        f"lane shares {shares}")
+    assert len(kinds) > 1, "the recorded K2 call holds no bounce rays"
+    cases = {
+        "K2 closest dof render": _recorded_case(
+            "cluster_walk", rec["cluster_walk"], exactly(compare_hits)),
+        "K3 surface dof render": _recorded_case(
+            "occlusion_walk", rec["occlusion_walk"],
+            exactly(compare_occlusion)),
+    }
+    return timed_cases(cases, n, card)
+
+
 def merge(errs, new):
     """Keep the largest error per kernel."""
     for k, v in new.items():
@@ -2080,12 +2321,55 @@ def main():
     merge(errs, e)
     counts["tile_walk"].update(cap_counts)
 
+    # ---- dof_motion_adaptive: 32. kernel checks; 33. accuracy; 34. full
+    # width; 35. main-path shapes ----
+    from raytracingproject_tpu_torch.app import cli
+    dscene, dflags = cli.load_scene("example:dof_motion")
+    dscene.device_update()
+    x_kg = dscene.make_kernel_globals(dev)
+    x_kg.update(dflags)
+    assert not x_kg["use_brute"] and int(x_kg["cam"]["use_motion"]) == 1
+    assert int(x_kg["cam"]["width"]) == DOF_SIZE
+    merge(errs, check_dof_walks(x_kg, rng))
+    accuracy(dev, "dof_motion_adaptive",
+             examples.dof_motion_scene(64, 64, spp=128), {}, DOF_RMSE_GATE,
+             DOF_FRAC_GATE, twin=np.load(TWIN_DOF)["dof_motion_adaptive"],
+             twin_f32=np.load(TWIN_F32)["dof_motion_adaptive"],
+             also=(("artifacts/twin_f64.npz (its camera in float32)",
+                    np.load(TWIN)["dof_motion_adaptive"]),))
+    x_launch, x_st, x_mean = dof_fixed_render(x_kg, card)
+    a_launch, a_rec, a_st = full_width(
+        card, "example:dof_motion", DOF_SIZE, DOF_SPP, JAX_MEAN_DOF_256,
+        0.01, ("cluster_walk", "occlusion_walk"), chunk=DOF_CHUNK)
+    log(f"[render] example:dof_motion: adaptive {a_st['adaptive']}, "
+        f"{a_st['samples_rendered']} of {a_st['samples_nominal']} samples "
+        f"rendered; Msamples/s counts the nominal budget")
+    assert a_st["adaptive"]
+    for launch in (x_launch, a_launch):
+        assert {k for k, v in launch.items() if v} == {
+            "cluster_walk", "occlusion_walk"}, "dof: another walk launched"
+    dof_device_adaptive(x_kg, card, x_mean)
+    counts["cluster_walk"]["dof render"] = count_phase(
+        "K2 closest, dof render", "cluster_walk", a_rec["cluster_walk"])
+    counts["occlusion_walk"]["dof render"] = count_phase(
+        "K3 surface, dof render", "occlusion_walk", a_rec["occlusion_walk"])
+    for name, label in (("cluster_walk", "K2"), ("occlusion_walk", "K3")):
+        g, x = counts[name]["glossy render"], counts[name]["dof render"]
+        log(f"[counts] {label} rows per lane: dof {x['rows']['mean']:.2f}, "
+            f"glossy {g['rows']['mean']:.2f}; boxes per lane: dof "
+            f"{x['boxes']['mean']:.2f}, glossy {g['boxes']['mean']:.2f}")
+    x_times, e = dof_main_path_checks(x_kg, card, a_rec)
+    merge(errs, e)
+    dof_fixed_vs_adaptive(dev, card, x_kg)
+
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),
              "cornell_diffuse": (c_launch, c_st),
              "volume_sss_dense": (d_launch, d_st),
              "big_instanced_onehot2": (o_launch, o_st),
-             "glossy_nee_mis_fused": (f_launch, f_st)}
+             "glossy_nee_mis_fused": (f_launch, f_st),
+             "dof_motion_adaptive": (a_launch, a_st),
+             "dof_motion_adaptive_fixed": (x_launch, x_st)}
     by_path = {name: {path: launch[name]
                       for path, (launch, _st) in paths.items()}
                for name in WRAPPERS}
@@ -2093,7 +2377,7 @@ def main():
         f"{path} {st['msamples_per_s']:.4f}"
         for path, (_l, st) in paths.items()) + f" ({card})")
     times = {**g_times, **v_times, **b_times, **c_times, **d_times,
-             **o_times, **f_times, **cap_times}
+             **o_times, **f_times, **cap_times, **x_times}
     # kernel, source, the TPU kernel's pallas_call, its timed case, the
     # prefix of its other cases
     k1 = ("dense_sweep", "pallas_intersect.py:156")

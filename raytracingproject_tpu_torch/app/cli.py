@@ -8,6 +8,8 @@
       --samples 32 --width 256 --height 256 --device cuda
   python -m raytracingproject_tpu_torch example:big_instanced[:onehot2] \\
       --samples 16 --width 256 --height 256 --chunk 8 --device cuda
+  python -m raytracingproject_tpu_torch example:dof_motion \\
+      --chunk 32 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
@@ -23,6 +25,12 @@ prims (K1 in its closest and dual forms).
 example:big_instanced is instanced_scene(grid=8), the two-level instanced
 scene (K5 for every closest hit and shadow test); example:big_instanced:
 onehot2 opts into K6 for both (examples.BIG_INSTANCED_ONEHOT2).
+example:dof_motion is the dof_motion_adaptive configuration
+(dof_motion_scene at 256x256, 64 spp: the glossy box through a six-bladed
+lens from a moving camera, K2 and K3 as for glossy); the scene declares
+adaptive sampling, so it renders through the session's adaptive branch,
+and Msamples/s counts the nominal budget (pixels x samples) over the wall
+time, with the samples actually rendered beside it.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ def build_parser():
                    help="'example:cornell[:variant]' | "
                    "'example:cornell:glossy:fused' | "
                    "'example:volume_sss[:dense]' | "
-                   "'example:big_instanced[:onehot2]'")
+                   "'example:big_instanced[:onehot2]' | "
+                   "'example:dof_motion'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -67,12 +76,15 @@ def load_scene(spec):
             and parts[2:] in ([], ["onehot2"]):
         return (examples.instanced_scene(256, 256, spp=16, grid=8),
                 examples.BIG_INSTANCED_ONEHOT2 if parts[2:] else {})
+    if parts == ["example", "dof_motion"]:
+        return examples.dof_motion_scene(256, 256, spp=64), {}
     if parts == ["example", "cornell", "glossy", "fused"]:
         return examples.cornell_box(spheres="glossy"), examples.GLOSSY_FUSED
     if parts[:2] != ["example", "cornell"] or len(parts) > 3:
         raise SystemExit(f"unknown scene '{spec}' (try example:cornell, "
                          "example:cornell:glossy[:fused], "
-                         "example:volume_sss or example:big_instanced)")
+                         "example:volume_sss, example:big_instanced or "
+                         "example:dof_motion)")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})
 
@@ -93,15 +105,16 @@ def run(args):
     kg = scene.make_kernel_globals(dev)
     kg.update(flags)
     t1 = time.perf_counter()
+    rs = {}
     img = render(scene, samples, chunk=args.chunk, device=dev,
-                 lanes_per_pixel=args.lanes_per_pixel, kg=kg)
+                 lanes_per_pixel=args.lanes_per_pixel, kg=kg, stats=rs)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t2 = time.perf_counter()
     w, h = int(scene.camera.width), int(scene.camera.height)
     return img, {"width": w, "height": h, "samples": samples,
                  "compile_s": t1 - t0, "render_s": t2 - t1,
-                 "msamples_per_s": w * h * samples / (t2 - t1) / 1e6}
+                 "msamples_per_s": w * h * samples / (t2 - t1) / 1e6, **rs}
 
 
 def main(argv=None):
@@ -117,6 +130,10 @@ def main(argv=None):
               f"{st['msamples_per_s']:.4f} Msamples/s "
               f"(render {st['render_s']:.2f} s, host compile "
               f"{st['compile_s']:.2f} s)", file=sys.stderr)
+        if st["adaptive"]:
+            print(f"adaptive: {st['samples_rendered']} of "
+                  f"{st['samples_nominal']} samples rendered; Msamples/s "
+                  "counts the nominal budget", file=sys.stderr)
     return 0
 
 

@@ -5,7 +5,10 @@ shader for shader, so both host compiles produce the same tables:
 `cornell_box` (with the two boxes the cornell_diffuse configuration, 36
 prims; with spheres="glossy" the glossy_nee_mis configuration),
 `volume_sss_scene` (the volume_sss configuration: a homogeneous smoke box
-and a random-walk SSS sphere in the Cornell box) and `instanced_scene`
+and a random-walk SSS sphere in the Cornell box), `dof_motion_scene` (the
+dof_motion_adaptive configuration: the glossy box seen through a
+six-bladed lens by a moving camera, rendered with adaptive sampling) and
+`instanced_scene`
 (with grid=8 the big_instanced configuration: 64 instances of one
 image-textured sphere on a checkered ground plane under a distant sun and
 a constant sky). Variants that need unported features (glass spheres, an
@@ -118,6 +121,26 @@ def cornell_box(width=256, height=256, spp=64, light_mode="mesh",
 
     scene.integrator.set("aa_samples", spp)
     scene.integrator.set("max_bounce", 4)
+    return scene
+
+
+def dof_motion_scene(width=256, height=256, spp=32):
+    """The dof_motion_adaptive configuration: the glossy Cornell box
+    through a 12-unit six-bladed aperture focused at 900, the camera
+    moving 25 units along world x over the shutter, and adaptive sampling
+    (threshold 0.02). Only the camera moves: the scene's tables are the
+    glossy box's."""
+    scene = cornell_box(width, height, spp, spheres="glossy")
+    scene.camera.set("aperturesize", 12.0)
+    scene.camera.set("focaldistance", 900.0)
+    scene.camera.set("blades", 6)
+    scene.camera.set("use_motion", True)
+    base = np.asarray(scene.camera.matrix, np.float32)
+    shift = tfm.compose(tfm.translate(25, 0, 0), base)
+    scene.camera.set("motion_start", base)
+    scene.camera.set("motion_end", shift)
+    scene.integrator.set("adaptive_threshold", 0.02)
+    scene.integrator.set("adaptive_min_samples", max(spp // 4, 4))
     return scene
 
 

@@ -2,7 +2,8 @@
 
     python -m raytracingproject_tpu_torch.app.profile_render \\
         [--scene glossy|glossy_fused|volume_sss|big_instanced|cornell|
-                 volume_sss_dense|big_instanced_onehot2] [--device cuda]
+                 volume_sss_dense|big_instanced_onehot2|dof_motion]
+        [--device cuda]
         [--out profile.json]
 
 Renders one configuration of chip_smoke.py at its full width, one lane
@@ -21,7 +22,9 @@ iteration), `big_instanced_onehot2` the same through K6; `cornell` is
 example:cornell (36 prims) at 512x512 through the dense sweep K1, closest
 mode and, for the shadow test, any-hit mode; `volume_sss_dense` is
 example:volume_sss:dense at 256x256 through K1's closest mode and its dual
-form.
+form; `dof_motion` is example:dof_motion at 256x256 (lens and motion camera
+rays on the glossy box) through K2 and K3, chunk by chunk as its fixed
+render runs.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
@@ -74,6 +77,8 @@ SCENES = {
                 "dense_closest_kernel", 1, "dense_any_kernel", 0),
     "volume_sss_dense": ("example:volume_sss:dense", 256, "dense_sweep",
                          "dense_closest_kernel", 1, "dense_dual_kernel", 0),
+    "dof_motion": ("example:dof_motion", 256, "cluster_walk",
+                   "cluster_walk_kernel", 1, K3_KERNEL, 0),
 }
 
 

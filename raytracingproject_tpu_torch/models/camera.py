@@ -1,9 +1,12 @@
 """Camera node (JAX counterpart: raytracingproject_tpu/models/camera.py).
 
 `update()` builds the same flattened record as the JAX package (every
-key, same dtypes and values) for the pinhole perspective camera of this
-slice; the record still carries the lens/panorama/motion fields so
-kernel-globals compare key for key. Other camera types raise.
+key, same dtypes and values) for the perspective camera, with its lens
+(aperture, blades, focal distance) and its motion path (two or more
+camera-to-world transforms at uniform shutter times, decomposed for the
+per-lane interpolation of ops/camera.py). The record still carries the
+panorama fields so kernel globals compare key for key. Orthographic and
+panorama cameras raise here, rolling shutter in ops/camera.py.
 """
 
 from __future__ import annotations
@@ -50,9 +53,38 @@ class Camera(Node):
         S("rolling_shutter_type", S.ENUM, "none", {"none": 0, "top": 1}),
         S("rolling_shutter_duration", S.FLOAT, 0.1),
         S("use_motion", S.BOOLEAN, False),
+        S("motion_start", S.TRANSFORM, tfm.identity()),
+        S("motion_end", S.TRANSFORM, tfm.identity()),
         S("width", S.INT, 1024),
         S("height", S.INT, 512),
     ]
+
+    def __init__(self, name="camera", **kwargs):
+        super().__init__(name, **kwargs)
+        self._motion_steps = None  # the full step list of set_motion
+
+    def set_motion(self, tfms):
+        """Multi-step camera motion: a list of 3x4 camera-to-world
+        transforms at uniform shutter times."""
+        tfms = [np.asarray(t, np.float32) for t in tfms]
+        if len(tfms) < 2:
+            raise ValueError("camera motion needs at least two transforms")
+        self.set("use_motion", True)
+        self.set("motion_start", tfms[0])
+        self.set("motion_end", tfms[-1])
+        self._motion_steps = tfms  # after set(), which drops the list
+
+    def set(self, name, value):
+        if name in ("motion_start", "motion_end") \
+                and getattr(self, "_motion_steps", None) is not None:
+            self._motion_steps = None
+        super().set(name, value)
+
+    def motion_transforms(self):
+        if self._motion_steps is not None:
+            return self._motion_steps
+        return [np.asarray(self.motion_start, np.float32),
+                np.asarray(self.motion_end, np.float32)]
 
     def compute_auto_viewplane(self):
         """Aspect-correct screen window."""
@@ -64,8 +96,6 @@ class Camera(Node):
 
     def update(self):
         """Precompute raster->camera and camera->world."""
-        if self.use_motion:
-            raise NotImplementedError("camera motion blur is not ported")
         ctype = self.get_enum_int("type")
         if ctype != CAMERA_PERSPECTIVE:
             raise NotImplementedError("only the perspective camera is ported")
@@ -91,7 +121,8 @@ class Camera(Node):
             [0, 0, 1, 0]], np.float32)
         raster_to_camera = tfm.compose(screen_scale, raster_to_screen)
         cam_to_world = np.asarray(self.matrix, np.float32)
-        decomp = tfm.decompose(cam_to_world)
+        path = (self.motion_transforms() if self.use_motion
+                else [cam_to_world] * 2)
         return {
             "type": np.int32(ctype),
             "panorama_type": np.int32(self.get_enum_int("panorama_type")),
@@ -116,11 +147,16 @@ class Camera(Node):
                 self.get_enum_int("rolling_shutter_type")),
             "rolling_shutter_duration": np.float32(
                 self.rolling_shutter_duration),
-            "use_motion": np.int32(0),
-            "motion_start": decomp,
-            "motion_end": decomp.copy(),
-            "motion_steps": np.int32(2),
-            "motion_decomps": np.concatenate([decomp, decomp]),
+            "use_motion": np.int32(1 if self.use_motion else 0),
+            "motion_start": tfm.decompose(self.motion_start if self.use_motion
+                                          else cam_to_world),
+            "motion_end": tfm.decompose(self.motion_end if self.use_motion
+                                        else cam_to_world),
+            # the camera's path: S decomposed steps, interpolated piecewise
+            # at each lane's shutter time (ops/camera.py)
+            "motion_steps": np.int32(len(path)),
+            "motion_decomps": np.concatenate(
+                [tfm.decompose(t) for t in path]),
             "width": np.int32(self.width),
             "height": np.int32(self.height),
         }

@@ -21,6 +21,8 @@ class Film(Node):
           {"box": FILTER_BOX, "gaussian": FILTER_GAUSSIAN,
            "blackman_harris": FILTER_BLACKMAN_HARRIS}),
         S("filter_width", S.FLOAT, 1.5),
+        # render adaptively (session/session.py render) even at threshold 0
+        S("use_adaptive_sampling", S.BOOLEAN, False),
     ]
 
     def filter_function(self, x, width):

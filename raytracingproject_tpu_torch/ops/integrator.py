@@ -89,6 +89,9 @@ from raytracingproject_tpu_torch.utils import math as um
 from raytracingproject_tpu_torch.utils import rng as rngu
 
 RAY_EPS = 1e-4
+# float32 ulps of the coordinates by which a walk's crossing of a light
+# triangle's plane may round, in height (_light_plane_tmax)
+GRAZE_ULPS = 8.0
 HIT_KEYS = ("t", "prim", "u", "v", "object")
 
 
@@ -220,6 +223,27 @@ def _shadow_blocked(kg, o, d, tmin, tmax):
         return _occlusion(kg, o, d, tmin, tmin, tmax)[2]
     hit = _scene_intersect_tris(kg, o, d, tmin, tmax, vis, shadow=True)
     return hit["prim"] >= 0
+
+
+def _light_plane_tmax(ls, o, d, dist, tmax):
+    """The NEE shadow segment's end, pulled back where the ray grazes the
+    plane of the sampled light triangle. The segment toward a point of
+    that triangle ends 0.1% short of the point, so that the triangle does
+    not block its own sample; but the walk's crossing of that plane rounds
+    by a few float32 ulps of the coordinates in height, which is that
+    height over |Ng_l . d| along the ray: a ray nearly in the plane (an
+    origin offset to within a few thousandths of it) can meet the triangle
+    inside the segment and lose its own light (the JAX package's render
+    blocks or passes such a sample depending on the wavefront's shape).
+    So the segment ends at least GRAZE_ULPS ulps of the larger coordinate,
+    over |Ng_l . d|, short of the light point; a ray that is not grazing
+    keeps its segment."""
+    cos_l = um.dot(ls["Ng_l"], d).abs()
+    h = (GRAZE_ULPS * 2.0 ** -23) * torch.maximum(
+        o.abs().amax(-1), ls["P_l"].abs().amax(-1))
+    end = torch.clamp(dist - h / torch.clamp(cos_l, min=1e-30) - RAY_EPS,
+                      min=1e-5)
+    return torch.where(ls["is_tri"], torch.minimum(tmax, end), tmax)
 
 
 def _use_fused_nee(kg):
@@ -498,8 +522,9 @@ def make_path_kernel(kg, px, py, pixel_index):
             * um.safe_divide(1.0, pdf_eq * ls_eq["pdf"], 0.0)[:, None]
         contrib_eq = _clamp_contrib(contrib_eq, clamp_val)
         sh_on_eq = eq_ok & (contrib_eq != 0.0).any(-1)
-        sh_tmax_eq = torch.clamp(ls_eq["dist"] * (1.0 - 1e-3) - RAY_EPS,
-                                 min=1e-5)
+        sh_tmax_eq = _light_plane_tmax(
+            ls_eq, P_eq, ls_eq["D"], ls_eq["dist"],
+            torch.clamp(ls_eq["dist"] * (1.0 - 1e-3) - RAY_EPS, min=1e-5))
         bhit_eq, blk_eq = dual_sweep(P_eq, ls_eq["D"], sh_on_eq, sh_on_eq,
                                      sh_tmax_eq)
         sh_trans_eq = torch.where(blk_eq[:, None], 0.0, 1.0)
@@ -637,8 +662,10 @@ def make_path_kernel(kg, px, py, pixel_index):
             dist2 = torch.clamp(um.length(to_l), min=1e-12)
             sh_d = torch.where(distant[:, None], ls["D"],
                                to_l / dist2[:, None])
-            sh_tmax = torch.where(distant, um.RAY_TMAX,
-                                  dist2 * (1.0 - 1e-3) - RAY_EPS)
+            sh_tmax = _light_plane_tmax(
+                ls, sh_o, sh_d, dist2,
+                torch.where(distant, um.RAY_TMAX,
+                            dist2 * (1.0 - 1e-3) - RAY_EPS))
             if fused:
                 # deferred to finish: the shadow ray shares the next ray's
                 # union walk, and the contribution is added there

@@ -120,14 +120,15 @@ def _sample_light_tri_distant(dscene, P, u_sel, u1, u2, rows=None):
     false = torch.zeros(n, dtype=torch.bool, device=P.device)
     return {"valid": valid, "delta": delta, "is_bg": false,
             "D": D, "dist": dist, "pdf": pdf, "eval": ev,
-            "Ng_l": Ng_l, "P_l": P_l, "pmf": pmf, "rows": rows}
+            "Ng_l": Ng_l, "P_l": P_l, "pmf": pmf, "rows": rows,
+            "is_tri": is_tri}
 
 
 def _sample_light_all_tri(dscene, P, u_sel, u1, u2, rows=None):
     """Uniform-area point on a power-picked emissive triangle. Returns
     dict valid, delta, is_bg, D (unit direction to the light), dist, pdf
-    (solid angle x pick pmf), eval (emitted radiance), Ng_l, P_l, pmf and
-    the picked entry rows."""
+    (solid angle x pick pmf), eval (emitted radiance), Ng_l, P_l, pmf,
+    the picked entry rows and is_tri (the sample lies on a triangle)."""
     n = P.shape[0]
     if rows is None:
         eidx, erow = light_distribution_sample(dscene, u_sel)
@@ -158,7 +159,8 @@ def _sample_light_all_tri(dscene, P, u_sel, u1, u2, rows=None):
     false = torch.zeros(n, dtype=torch.bool, device=P.device)
     return {"valid": valid, "delta": false, "is_bg": false,
             "D": D, "dist": dist, "pdf": pdf, "eval": tri_emission,
-            "Ng_l": Ng_l, "P_l": P_l, "pmf": pmf, "rows": rows}
+            "Ng_l": Ng_l, "P_l": P_l, "pmf": pmf, "rows": rows,
+            "is_tri": ~false}
 
 
 def triangle_light_pdf(dscene, prim_row, t_hit, cos_hit):

@@ -129,6 +129,38 @@ def sample_uniform_sphere(u1, u2):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 
+def concentric_sample_disk(u1, u2):
+    """Concentric (Shirley) map of the unit square onto the unit disk ->
+    (x, y). Branch-free."""
+    a = 2.0 * u1 - 1.0
+    b = 2.0 * u2 - 1.0
+    use_a = a.abs() > b.abs()
+    r = torch.where(use_a, a, b)
+    safe = torch.where(use_a, torch.where(a == 0.0, 1.0, a),
+                       torch.where(b == 0.0, 1.0, b))
+    phi = torch.where(use_a, (M_PI / 4.0) * (b / safe),
+                      (M_PI / 2.0) - (M_PI / 4.0) * (a / safe))
+    r = torch.where((a == 0.0) & (b == 0.0), 0.0, r)
+    return r * torch.cos(phi), r * torch.sin(phi)
+
+
+def regular_polygon_sample(corners, rotation, u1, u2):
+    """Uniform point in a regular polygon of `corners` sides inscribed in
+    the unit circle (the aperture's blades) -> (x, y): u1 picks the
+    side's triangle of the fan, (u, v) folds onto that triangle."""
+    u = u1 * corners
+    side = torch.floor(u)
+    u = u - side
+    v = u2
+    flip = u + v > 1.0
+    u = torch.where(flip, 1.0 - u, u)
+    v = torch.where(flip, 1.0 - v, v)
+    angle0 = (side / corners) * M_2PI + rotation
+    angle1 = ((side + 1.0) / corners) * M_2PI + rotation
+    return (u * torch.cos(angle0) + v * torch.cos(angle1),
+            u * torch.sin(angle0) + v * torch.sin(angle1))
+
+
 def triangle_area(v0, v1, v2):
     return 0.5 * length(cross(v1 - v0, v2 - v0))
 

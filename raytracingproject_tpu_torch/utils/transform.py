@@ -1,15 +1,22 @@
-"""Affine transforms as 3x4 matrices, host side (JAX counterpart: the
-NumPy half of raytracingproject_tpu/utils/transform.py).
+"""Affine transforms as 3x4 matrices (JAX counterpart:
+raytracingproject_tpu/utils/transform.py).
 
-Only what the host scene compile needs: construction (identity,
-translation, rotation), composition, inversion, look-at, point transforms and the motion decomposition the
-camera record carries. Same NumPy operations in the same order as the
-JAX package, so the compiled scene tables come out bit-identical.
+Host side, in NumPy: what the scene compile needs, construction
+(identity, translation, rotation), composition, inversion, look-at, point
+transforms and the motion decomposition the camera record carries. Same
+NumPy operations in the same order as the JAX package, so the compiled
+scene tables come out bit-identical.
+
+Per lane, in torch: the camera's motion path, a decomposed transform
+interpolated at each lane's shutter time (quat_to_matrix,
+motion_interpolate, motion_interpolate_steps). Products are written out
+by components, never through `@` (see utils/math.py mat34_point).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 IDENTITY = np.array([[1, 0, 0, 0],
                      [0, 1, 0, 0],
@@ -131,3 +138,73 @@ def decompose(t):
     out[4:7] = t[:3, 3]
     out[7:16] = scale_m.reshape(-1)
     return out
+
+
+def quat_to_matrix(q):
+    """(..., 4) unit quaternions (w, x, y, z) -> (..., 3, 3) rotations."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                      2 * (x * z + w * y)], -1)
+    r1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                      2 * (y * z - w * x)], -1)
+    r2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                      1 - 2 * (x * x + y * y)], -1)
+    return torch.stack([r0, r1, r2], -2)
+
+
+def _dot4(a, b):
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2] + a[..., 3] * b[..., 3])[..., None]
+
+
+def motion_interpolate(decomp_a, decomp_b, t):
+    """Two decomposed transforms (flat 16-float records of `decompose`)
+    interpolated at times t in [0, 1] -> (..., 3, 4): the rotation by
+    slerp (nlerp where the quaternions are nearly parallel), translation
+    and scale linearly."""
+    qa, qb = decomp_a[..., 0:4], decomp_b[..., 0:4]
+    d = _dot4(qa, qb)
+    qb = torch.where(d < 0.0, -qb, qb)
+    d = d.abs()
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    use_slerp = sin_theta > 1e-5
+    # the division only where it is taken: no lane divides by zero
+    safe_sin = torch.where(use_slerp, sin_theta, 1.0)
+    tt = t[..., None]
+    wa = torch.where(use_slerp, torch.sin((1.0 - tt) * theta) / safe_sin,
+                     1.0 - tt)
+    wb = torch.where(use_slerp, torch.sin(tt * theta) / safe_sin, tt)
+    q = wa * qa + wb * qb
+    q = q / torch.clamp(torch.sqrt(_dot4(q, q)), min=1e-12)
+    trans = (1.0 - tt) * decomp_a[..., 4:7] + tt * decomp_b[..., 4:7]
+    sm = (1.0 - tt) * decomp_a[..., 7:16] + tt * decomp_b[..., 7:16]
+    sm = sm.reshape(sm.shape[:-1] + (3, 3))
+    rot = quat_to_matrix(q)
+    m = torch.stack([torch.stack(
+        [rot[..., i, 0] * sm[..., 0, j] + rot[..., i, 1] * sm[..., 1, j]
+         + rot[..., i, 2] * sm[..., 2, j] for j in range(3)], -1)
+        for i in range(3)], -2)
+    return torch.cat([m, trans[..., None]], -1)
+
+
+def motion_interpolate_steps(decomps, time, steps):
+    """Piecewise interpolation over `steps` decomposed transforms packed
+    in one (..., steps * 16) record: each lane picks its segment by a
+    select chain, then interpolates inside it. steps == 2 is
+    motion_interpolate."""
+    if steps == 2:
+        return motion_interpolate(decomps[..., 0:16], decomps[..., 16:32],
+                                  time)
+    s1 = steps - 1
+    tt = time * s1
+    j = torch.clamp(torch.floor(tt), 0.0, float(s1 - 1))
+    frac = tt - j
+    da = torch.zeros(decomps.shape[:-1] + (16,), dtype=decomps.dtype,
+                     device=decomps.device)
+    db = da
+    for k in range(s1):
+        sel = (j == k)[..., None]
+        da = torch.where(sel, decomps[..., 16 * k:16 * k + 16], da)
+        db = torch.where(sel, decomps[..., 16 * (k + 1):16 * (k + 2)], db)
+    return motion_interpolate(da, db, frac)

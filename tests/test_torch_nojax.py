@@ -7,8 +7,11 @@ images on the CPU, and so do the dense path's cornell_diffuse scene,
 volume_sss under the host compile's own dense dispatch and big_instanced
 with pallas_onehot2 and the glossy scene in fused-NEE mode, each through
 the CLI's scene loader; the fused kernel globals also take one round of
-the adaptive loop. The sources import neither jax nor anything of the
-JAX package."""
+the adaptive loop. In a second subprocess the dof_motion_adaptive scene
+(example:dof_motion: lens and motion camera) renders 8x8 at 2 spp
+through the CLI's scene loader, fixed and through render's adaptive
+branch, and takes one round of the host-planned adaptive loop. The
+sources import neither jax nor anything of the JAX package."""
 
 import os
 import re
@@ -76,6 +79,51 @@ assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
 print("NOJAX_OK", float(img.mean()), float(vimg.mean()), float(bimg.mean()),
       *means)
 """
+
+
+DOF_SCRIPT = r"""
+import importlib.abc, sys
+
+BLOCKED = ("jax", "jaxlib", "raytracingproject_tpu")
+
+class BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, BlockJax())
+import numpy as np
+from raytracingproject_tpu_torch.app import cli
+from raytracingproject_tpu_torch.session.adaptive import render_adaptive
+from raytracingproject_tpu_torch.session.session import render, render_fixed
+sc, flags = cli.load_scene("example:dof_motion")
+assert not flags and sc.integrator.adaptive_threshold > 0
+sc.camera.set("width", 8)
+sc.camera.set("height", 8)
+sc.device_update()
+kg = sc.make_kernel_globals("cpu")
+assert int(kg["cam"]["use_motion"]) == 1
+assert float(kg["cam"]["aperturesize"]) > 0
+fixed = render_fixed(kg, 2, chunk=2)
+st = {}
+adapt = render(sc, samples=2, chunk=2, device="cpu", kg=kg, stats=st)
+assert st["adaptive"] and st["per_pixel_samples"].shape == (8, 8)
+for im in (fixed, adapt):
+    assert im.shape == (8, 8, 3) and np.isfinite(im).all() and im.mean() > 0
+L, A, counts, rs = render_adaptive(kg, 8, 8, 2, threshold=0.02, chunk=2)
+assert rs["dispatches"] == 1 and (counts == 2).all() and np.isfinite(L).all()
+assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
+print("NOJAX_DOF_OK", float(fixed.mean()), float(adapt.mean()))
+"""
+
+
+def test_dof_slice_renders_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", DOF_SCRIPT], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "NOJAX_DOF_OK" in r.stdout
 
 
 def _sources():
