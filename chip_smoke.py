@@ -9,7 +9,9 @@ phase fails:
 1. environment: CUDA present; card name and power limit (nvidia-smi),
    torch and CUDA versions; TF32 off (raytracingproject_tpu_torch.device);
 2. build: the hand-written kernels compiled from csrc/*.cu, one nvcc call
-   per source, all started together;
+   per source, all started together; the port's C++ BVH builder
+   (native/bvh_builder.cpp, one g++ call) for scenes of 2,048 prims and
+   more, with its build time;
 
 glossy_nee_mis (the Cornell box with a GGX sphere; K2 and K3):
 
@@ -240,6 +242,53 @@ threshold 0.02; only the camera is new, so K2 and K3 as for glossy):
    three renders each in turns, Msamples/s as the nominal budget over
    the wall time (median, min-max).
 
+textured_instanced (instanced_scene at grid=4: 16 image-textured spheres
+on a checkered ground under a distant sun and a sky, 8,450 prims compiled
+flattened through the port's C++ BVH builder to 385 clusters x 30
+triangles; K2 for every closest hit, K3's surface form for every sun
+shadow test):
+
+36. the host compile (example:textured_instanced), its time and the BVH
+   builder's share of it; the dispatch picks K2 and K3; kernels vs plain
+   versions on its tables: K2 closest (to the bit) and any hit (masks
+   equal) on 65,536 random rays from inside the scene's bounds and 65,536
+   camera rays, K3's surface form (to the bit) on sun shadow rays from
+   their first hits;
+37. accuracy: 64x64, 128 spp, chunk 16, clamp off, against
+   artifacts/twin_f64_r04.npz["textured_instanced"] (rmse <= 1.27e-6,
+   twice the JAX package's own float32 render against it,
+   artifacts/RMSE_r04.json; <= 0.07% of pixels off by more than 1e-3);
+   twin_f64.npz's entry for this scene predates the box-filtered checker,
+   and the rmse against it is logged beside;
+38. full width: 256x256, 64 spp, chunk 32 through the CLI code path
+   (example:textured_instanced): finite, mean within 0.5% of the JAX
+   package's mean for the same render (JAX_MEAN_TEX_256), K2 and K3
+   launched and no other walk; the inputs of each kernel's third call are
+   copied;
+39. main-path shapes: the counting variants of K2 and K3 on the copied
+   inputs (outputs equal to the plain launch's), their rows and boxes per
+   lane printed beside glossy's; at 65,536 lanes K2 and K3 held against
+   their plain versions (the copied inputs to the bit; camera rays; sun
+   shadow rays) and timed;
+
+instanced_scene(grid=5) (25 spheres, 13,202 prims compiled flattened to
+599 clusters x 32 triangles, past K2's 512: K4 for every closest hit, K3
+for every shadow test; the first real scene over 512 clusters):
+
+40. the host compile, its time and the builder's; the dispatch picks K4
+   and K3; K4 closest and any hit against its plain version (t, u, v to
+   the bit off exact-t ties) and its scan-order mirror (every output on
+   every lane, ties included), and K3's surface form (to the bit), on
+   random, camera and sun shadow rays as in 36;
+41. reduced render: 128x128, 8 spp, chunk 8 through session.render:
+   finite, mean within 0.5% of the JAX package's (JAX_MEAN_TEX5_128), K4
+   and K3 launched and no other walk; the inputs of each kernel's third
+   call are copied;
+42. counts and times: K4's counting variant on the copied input, its
+   counts equal to tile_queue_order's on every lane; K4 and K3 held and
+   timed on the copied inputs and K4 on 65,536 camera rays, each printed
+   beside phase 31's 640-cluster synthetic table.
+
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. A kernel's
 time is the median of three timings, each the median of 20 runs. Each
@@ -364,6 +413,30 @@ DOF_THRESHOLD, DOF_MIN_SAMPLES = 0.02, 16
 # (56, 11) of twin_f64 change with the loop and the wavefront's shape)
 DOF_RMSE_GATE, DOF_FRAC_GATE = 1.2e-5, 0.0007
 TWIN_DOF = "raytracingproject_tpu_torch/data/twin_dof_motion.npz"
+# textured_instanced 256x256x64, chunks of 32, default clamp (the JAX
+# package's render_samples_regen on the CPU, float64 sum, with the port's
+# BVH builder in place of its own, whose numbering races at this size;
+# python -m tests.test_torch_textured_render mean 256 64 32 4)
+JAX_MEAN_TEX_256 = 0.22633297881757933
+TEX_SIZE, TEX_SPP, TEX_CHUNK = 256, 64, 32
+# its 64x64x128 gate: twice the JAX package's own f32 render (rmse
+# 6.36e-7, artifacts/RMSE_r04.json), glossy's share of pixels off by more
+# than 1e-3 (the JAX render's own share is 0). RMSE_r04.json compares the
+# round-4 pair TWIN_R04 / TWIN_F32_R04, the reference here: in twin_f64.npz
+# and twin_f32.npz this scene's entries predate the box-filtered checker
+# (7.06e-3 from TWIN_R04, where every other scene's entries are equal to
+# it), and today's JAX package's float64 render is 5.1e-8 from it
+# (tests/test_torch_textured_render.py wavefronts); the rmse against
+# twin_f64.npz is logged beside it
+TEX_RMSE_GATE, TEX_FRAC_GATE = 1.27e-6, 0.0007
+TWIN_R04, TWIN_F32_R04 = ("artifacts/twin_f64_r04.npz",
+                          "artifacts/twin_f32_r04.npz")
+# instanced_scene(grid=5): 13,202 prims compiled flattened to 599 clusters
+# x 32 triangles, past K2's 512: K4 and K3. Its render at 128x128x8,
+# chunks of 8 (the same way: python -m tests.test_torch_textured_render
+# mean 128 8 8 5)
+JAX_MEAN_TEX5_128 = 0.21918006322018926
+GRID5_SIZE, GRID5_SPP, GRID5_CHUNK = 128, 8, 8
 # timed renders per driver in the fixed-vs-adaptive measurement
 DOF_RENDERS = 3
 HBM_BYTES_PER_S = 3.35e12
@@ -986,10 +1059,12 @@ def _lane_visibility(name, rec):
     return kinds, shares
 
 
-def glossy_main_path_checks(kg, side, rng, card, rec):
+def glossy_main_path_checks(kg, side, rng, card, rec, shadows=None,
+                            suffix=""):
     """At side x side lanes: K2 closest on the render's recorded input and
-    on camera rays, K2 any-hit on NEE-like shadow rays, K3 on the render's
-    recorded input and on the shadow rays."""
+    on camera rays, K2 any-hit on NEE-like shadow rays (`shadows(kg, o,
+    d, rng)`, by default shadow_rays), K3 on the render's recorded input
+    and on the shadow rays. Each case's name ends in `suffix`."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     ds = kg["dscene"]
     cb, ct_, cbd = ds["cluster_bounds"], ds["cluster_table"], \
@@ -1000,13 +1075,13 @@ def glossy_main_path_checks(kg, side, rng, card, rec):
     zeros = torch.zeros(n, device=cb.device)
     big = torch.full((n,), 1e30, device=cb.device)
     vis = torch.full((n,), 1, dtype=torch.int32, device=cb.device)
-    so, sd, stmin, stmax = shadow_rays(kg, o, d, rng)
+    so, sd, stmin, stmax = (shadows or shadow_rays)(kg, o, d, rng)
     svis = torch.full((n,), 128, dtype=torch.int32, device=cb.device)
     for r in rec.values():
         assert r["args"][4].shape[0] == n, "recorded call is not full width"
     kinds, shares = _lane_visibility("cluster_walk", rec["cluster_walk"])
-    log(f"[main-path] recorded K2 input: visibility values {kinds}, lane "
-        f"shares {shares}")
+    log(f"[main-path] recorded K2 input{suffix}: visibility values {kinds}, "
+        f"lane shares {shares}")
     assert len(kinds) > 1, "the recorded K2 call holds no bounce rays"
     k2, k3 = wrapper("cluster_walk"), wrapper("occlusion_walk")
     cam = (cb, ct_, ctris, o, d, zeros, big, vis)
@@ -1033,7 +1108,8 @@ def glossy_main_path_checks(kg, side, rng, card, rec):
             "occlusion_walk", compare_occlusion,
             lambda out: occlusion_bound(occ, out)),
     }
-    return timed_cases(cases, n, card)
+    return timed_cases({name + suffix: case for name, case in cases.items()},
+                       n, card)
 
 
 def volume_main_path_checks(kg, side, card, rec):
@@ -1131,9 +1207,21 @@ def full_width(card, spec, width, spp, ref_mean, mean_gate, path_kernels,
         [spec, "--samples", str(spp), "--width", str(width), "--height",
          str(width), "--chunk", str(chunk), "--lanes-per-pixel", "1",
          "--device", device])
+    return path_render(card, spec, width, spp, chunk, ref_mean, mean_gate,
+                       path_kernels, lambda: cli.run(args))
+
+
+def path_render(card, spec, width, spp, chunk, ref_mean, mean_gate,
+                path_kernels, run):
+    """run() -> (image, stats) renders a width x width x spp image of the
+    path `spec`; launch counts are set to 0 just before it and read just
+    after, the image is held to the JAX package's mean, and each kernel
+    of `path_kernels` must have launched. Returns the counts, the
+    recorded inputs of each path kernel's RECORD_CALL-th call and the
+    stats."""
     with record_calls(path_kernels, RECORD_CALL) as rec:
         reset_launches()
-        img, st = cli.run(args)
+        img, st = run()
         launches = {name: launches_of(name) for name in WRAPPERS}
     mean = float(img.astype(np.float64).mean())
     mean_rel = abs(mean / ref_mean - 1.0)
@@ -1244,16 +1332,18 @@ def check_cluster2(kg, n_check, rng, kernel="cluster2_walk"):
     return {kernel: err}
 
 
-def sun_shadow_rays(kg, o, d, rng):
-    """NEE shadow rays toward the distant lamp from the camera rays' first
-    hits (directions from the port's own light sampler); lanes that miss
-    get the empty window [1e-5, 1e-5], as the integrator gives them."""
+def sun_shadow_rays(kg, o, d, rng, hit=None):
+    """NEE shadow rays toward the distant lamp from the rays' first hits
+    (`hit`; by default the plain two-level walk's closest hits of o, d;
+    directions from the port's own light sampler); lanes that miss get
+    the empty window [1e-5, 1e-5], as the integrator gives them."""
     from raytracingproject_tpu_torch.ops import light as light_ops
     dev = o.device
     n = o.shape[0]
-    vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
-    hit = k5_call(kg, o, d, torch.zeros(n, device=dev),
-                  torch.full((n,), 1e30, device=dev), vis, False, None)
+    if hit is None:
+        vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
+        hit = k5_call(kg, o, d, torch.zeros(n, device=dev),
+                      torch.full((n,), 1e30, device=dev), vis, False, None)
     P = o + hit["t"][:, None] * d
     u = [torch.tensor(rng.uniform(size=n).astype(np.float32), device=dev)
          for _ in range(3)]
@@ -2133,6 +2223,187 @@ def dof_main_path_checks(kg, card, rec):
     return timed_cases(cases, n, card)
 
 
+def check_single_level(kg, rng, walk, label):
+    """On a real scene's flattened single-level tables: K2 (walk=
+    "cluster_walk") or K4 ("tile_walk"), closest and any hit, on 65,536
+    random rays from inside the scene's bounds and 65,536 camera rays,
+    and K3's surface form on sun shadow rays from their first hits, each
+    against its plain version. K2's closest hit and K3 equal to the bit,
+    K4's t, u, v to the bit off exact-t ties and every output equal to
+    its scan-order mirror's on every lane, ties included; any-hit masks
+    equal. Returns max |t| error per kernel."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    cb, ct_, cbd = ds["cluster_bounds"], ds["cluster_table"], \
+        ds["cluster_boundary"]
+    ctris = int(kg["cluster_tris"])
+    dev = cb.device
+    side = int(round(N_CHECK ** 0.5))
+    lo, hi = scene_box(kg)
+    errs = {walk: 0.0, "occlusion_walk": 0.0}
+    for rays, (o, d), tmin0 in (
+            ("random", random_rays(N_CHECK, rng, dev, lo, hi), 1e-4),
+            ("camera", camera_rays(kg, side, side, dev), 0.0)):
+        n = o.shape[0]
+        args = (cb, ct_, ctris, o, d, torch.full((n,), tmin0, device=dev),
+                torch.full((n,), 1e30, device=dev),
+                torch.full((n,), 1, dtype=torch.int32, device=dev))
+        for any_hit in (False, True):
+            ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit)
+            got = wrapper(walk)(*args, shadow_any_hit=any_hit)
+            sync()
+            name = (f"{walk} {'any-hit' if any_hit else 'closest'} {rays} "
+                    f"{label}")
+            if walk == "tile_walk":
+                e = in_scan_order(compare_walk, walk, args, any_hit)(
+                    name, ref, got, any_hit)
+            elif any_hit:
+                e = compare_any_hit(name, ref, got)
+            else:
+                e = exactly(compare_hits)(name, ref, got)
+            errs[walk] = max(errs[walk], e)
+        so, sd, stmin, stmax = sun_shadow_rays(
+            kg, o, d, rng, hit=ci.intersect_clusters(*args))
+        occ = (cb, ct_, cbd, ctris, so, sd, stmin, stmin, stmax, 1, 128)
+        ref = ci.occlusion_clusters(*occ)
+        got = wrapper("occlusion_walk")(*occ)
+        sync()
+        errs["occlusion_walk"] = max(errs["occlusion_walk"], exactly(
+            compare_occlusion)(f"occlusion_walk surface sun shadow {rays} "
+                               f"{label}", ref, got))
+    return errs
+
+
+def textured_shadow_rays(kg, o, d, rng):
+    """Sun shadow rays from K2's closest hits of o, d (single-level
+    tables)."""
+    ds = kg["dscene"]
+    n = o.shape[0]
+    hit = wrapper("cluster_walk")(
+        ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
+        o, d, torch.zeros(n, device=o.device),
+        torch.full((n,), 1e30, device=o.device),
+        torch.full((n,), 1, dtype=torch.int32, device=o.device))
+    return sun_shadow_rays(kg, o, d, rng, hit=hit)
+
+
+def timed_compile(scene, dev):
+    """scene's host compile: (kernel globals, compile s, s in the BVH
+    builder)."""
+    from raytracingproject_tpu_torch import native
+    orig, spent = native.build_bvh_native, []
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    native.build_bvh_native = timed
+    try:
+        t0 = time.perf_counter()
+        scene.device_update()
+        kg = scene.make_kernel_globals(dev)
+        sync()
+        compile_s = time.perf_counter() - t0
+    finally:
+        native.build_bvh_native = orig
+    return kg, compile_s, sum(spent)
+
+
+def textured_main_path_checks(kg, card, rec, counts):
+    """Phase 39: the counting variants of K2 and K3 on the textured
+    render's recorded inputs, their rows and boxes printed beside
+    glossy's; then K2 and K3 held against their plain versions at 65,536
+    lanes (the recorded inputs to the bit, camera rays, sun shadow rays)
+    and timed."""
+    for name, label in (("cluster_walk", "K2 closest"),
+                        ("occlusion_walk", "K3 surface")):
+        counts[name]["textured_instanced render"] = count_phase(
+            f"{label}, textured_instanced render", name, rec[name])
+        g = counts[name]["glossy render"]
+        x = counts[name]["textured_instanced render"]
+        log(f"[counts] {label.split()[0]} rows per lane: textured_instanced "
+            f"{x['rows']['mean']:.2f}, glossy {g['rows']['mean']:.2f}; "
+            f"boxes per lane: textured_instanced {x['boxes']['mean']:.2f}, "
+            f"glossy {g['boxes']['mean']:.2f}")
+    return glossy_main_path_checks(
+        kg, TEX_SIZE, np.random.default_rng(SEED + 36), card, rec,
+        shadows=textured_shadow_rays, suffix=" (textured_instanced)")
+
+
+def grid5_render(card, scene, kg, compile_s):
+    """Phase 41: instanced_scene(grid=5) at GRID5_SIZE^2 x GRID5_SPP, chunks
+    of GRID5_CHUNK, through session.render on the compiled kg; K4 and K3
+    launched and no other walk, their third calls copied."""
+    from raytracingproject_tpu_torch.session.session import render
+
+    def run():
+        t0 = time.perf_counter()
+        img = render(scene, GRID5_SPP, chunk=GRID5_CHUNK,
+                     device=kg["filter_table"].device, kg=kg)
+        sync()
+        wall = time.perf_counter() - t0
+        return img, {"render_s": wall, "compile_s": compile_s,
+                     "msamples_per_s": GRID5_SIZE * GRID5_SIZE * GRID5_SPP
+                     / wall / 1e6}
+
+    launches, rec, st = path_render(
+        card, "instanced_scene(grid=5)", GRID5_SIZE, GRID5_SPP, GRID5_CHUNK,
+        JAX_MEAN_TEX5_128, 0.005, ("tile_walk", "occlusion_walk"), run)
+    assert {k for k, v in launches.items() if v} == {
+        "tile_walk", "occlusion_walk"}, "grid=5: another walk launched"
+    return launches, rec, st
+
+
+def grid5_main_path_checks(kg, card, rec, cap_times):
+    """Phase 42: K4 (to the bit off exact-t ties, and to its scan-order
+    mirror on every lane) and K3 (to the bit) held against their plain
+    versions and timed on the grid=5 render's recorded inputs, and K4 on
+    65,536 camera rays; printed beside the 640-cluster table of phase
+    31."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    rk4 = _positional("tile_walk", rec["tile_walk"])
+    n = rk4[3].shape[0]
+    kinds, shares = _lane_visibility("tile_walk", rec["tile_walk"])
+    log(f"[main-path] recorded K4 input (grid=5): visibility values {kinds},"
+        f" lane shares {shares}")
+    assert len(kinds) > 1, "the recorded K4 call holds no bounce rays"
+    times, errs = timed_cases({
+        "K4 closest render (grid=5)": _recorded_case(
+            "tile_walk", rec["tile_walk"],
+            in_scan_order(compare_hits, "tile_walk", rk4[:8], rk4[8])),
+        "K3 surface render (grid=5)": _recorded_case(
+            "occlusion_walk", rec["occlusion_walk"],
+            exactly(compare_occlusion)),
+    }, n, card)
+    side = int(round(N_CHECK ** 0.5))
+    o, d = camera_rays(kg, side, side, ds["cluster_bounds"].device)
+    m = o.shape[0]
+    cam = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
+           o, d, torch.zeros(m, device=o.device),
+           torch.full((m,), 1e30, device=o.device),
+           torch.full((m,), 1, dtype=torch.int32, device=o.device))
+    t2, e = timed_cases({"K4 closest camera (grid=5)": (
+        lambda: wrapper("tile_walk")(*cam),
+        lambda: ci.intersect_clusters(*cam), "tile_walk",
+        in_scan_order(compare_hits, "tile_walk", cam, False),
+        lambda out: walk_bound(cam, {}, out))}, m, card)
+    times.update(t2)
+    merge(errs, e)
+    c = int(ds["cluster_bounds"].shape[0])
+    for new, cap in (("K4 closest camera (grid=5)", "K4 closest at the cap"),
+                     ("K4 closest render (grid=5)", "K4 closest at the cap"),
+                     ("K3 surface render (grid=5)", "K3 dual at the cap")):
+        a, b = times[new], cap_times[cap]
+        log(f"[time] {new}, {c} clusters, {a['lanes']} lanes: "
+            f"{a['ms']:.4f} ms (bound {a['bound_ms']:.5f}); beside "
+            f"{cap}, {CAP_CLUSTERS} synthetic clusters, {b['lanes']} "
+            f"lanes: {b['ms']:.4f} ms (bound {b['bound_ms']:.5f}) ({card})")
+    return times, errs
+
+
 def merge(errs, new):
     """Keep the largest error per kernel."""
     for k, v in new.items():
@@ -2169,6 +2440,12 @@ def main():
         if "registers" in line or "spill" in line or line.startswith("==") \
                 or "entry function" in line:
             log(f"[build] {line.strip()}")
+    from raytracingproject_tpu_torch import native
+    native.load()
+    log(f"[build] BVH builder {native.SOURCE.split('/')[-1]} (g++ "
+        f"{' '.join(native.GXX_FLAGS)}): "
+        f"{'built' if native.build_info['built'] else 'cached'} in "
+        f"{native.build_info['seconds']:.2f} s")
     rng = np.random.default_rng(SEED)
 
     # ---- glossy_nee_mis: 3. kernel checks; 4. accuracy; 5. full width;
@@ -2362,6 +2639,61 @@ def main():
     merge(errs, e)
     dof_fixed_vs_adaptive(dev, card, x_kg)
 
+    # ---- textured_instanced: 36. kernel checks; 37. accuracy; 38. full
+    # width; 39. main-path shapes ----
+    tscene, tflags = cli.load_scene("example:textured_instanced")
+    assert not tflags
+    t_kg, t_compile, t_bvh = timed_compile(tscene, dev)
+    ds = t_kg["dscene"]
+    log(f"[compile] example:textured_instanced: {ds['prim_table'].shape[0]} "
+        f"prims, {ds['cluster_bounds'].shape[0]} clusters x "
+        f"{t_kg['cluster_tris']} triangles, host compile {t_compile:.3f} s, "
+        f"of which the BVH builder {t_bvh:.4f} s")
+    assert ds["prim_table"].shape[0] == 8450 and not t_kg["has_instances"]
+    assert ds["cluster_bounds"].shape[0] == 385 and t_kg["cluster_tris"] == 30
+    from raytracingproject_tpu_torch.ops import integrator as integ
+    assert integ._closest_walk_name(t_kg) == "cluster_walk"
+    assert integ._use_occlusion_walk(t_kg)
+    merge(errs, check_single_level(t_kg, rng, "cluster_walk",
+                                   "textured_instanced"))
+    accuracy(dev, "textured_instanced",
+             examples.instanced_scene(64, 64, spp=128), {}, TEX_RMSE_GATE,
+             TEX_FRAC_GATE, twin=np.load(TWIN_R04)["textured_instanced"],
+             twin_f32=np.load(TWIN_F32_R04)["textured_instanced"],
+             also=(("artifacts/twin_f64.npz (before the box-filtered "
+                    "checker)", np.load(TWIN)["textured_instanced"]),))
+    t_launch, t_rec, t_st = full_width(
+        card, "example:textured_instanced", TEX_SIZE, TEX_SPP,
+        JAX_MEAN_TEX_256, 0.005, ("cluster_walk", "occlusion_walk"),
+        chunk=TEX_CHUNK)
+    assert {k for k, v in t_launch.items() if v} == {
+        "cluster_walk", "occlusion_walk"}, "textured: another walk launched"
+    t_times, e = textured_main_path_checks(t_kg, card, t_rec, counts)
+    merge(errs, e)
+
+    # ---- instanced_scene(grid=5), 599 clusters: 40. kernel checks; 41.
+    # reduced render; 42. counts and times ----
+    gscene = examples.instanced_scene(GRID5_SIZE, GRID5_SIZE, spp=GRID5_SPP,
+                                      grid=5)
+    r_kg, r_compile, r_bvh = timed_compile(gscene, dev)
+    ds = r_kg["dscene"]
+    log(f"[compile] instanced_scene(grid=5): {ds['prim_table'].shape[0]} "
+        f"prims, {ds['cluster_bounds'].shape[0]} clusters x "
+        f"{r_kg['cluster_tris']} triangles, host compile {r_compile:.3f} s, "
+        f"of which the BVH builder {r_bvh:.4f} s")
+    assert ds["prim_table"].shape[0] == 13202 and not r_kg["has_instances"]
+    assert ds["cluster_bounds"].shape[0] == 599 and r_kg["cluster_tris"] == 32
+    assert integ._closest_walk_name(r_kg) == "tile_walk"
+    assert integ._use_occlusion_walk(r_kg)
+    merge(errs, check_single_level(r_kg, rng, "tile_walk", "grid=5"))
+    r_launch, r_rec, r_st = grid5_render(card, gscene, r_kg, r_compile)
+    rk4 = _positional("tile_walk", r_rec["tile_walk"])
+    counts["tile_walk"]["grid=5 render"] = order_count_phase(
+        "K4 closest, grid=5 render (599 clusters)", "tile_walk", rk4[:8],
+        rk4[8])
+    r_times, e = grid5_main_path_checks(r_kg, card, r_rec, cap_times)
+    merge(errs, e)
+
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),
              "cornell_diffuse": (c_launch, c_st),
@@ -2369,7 +2701,9 @@ def main():
              "big_instanced_onehot2": (o_launch, o_st),
              "glossy_nee_mis_fused": (f_launch, f_st),
              "dof_motion_adaptive": (a_launch, a_st),
-             "dof_motion_adaptive_fixed": (x_launch, x_st)}
+             "dof_motion_adaptive_fixed": (x_launch, x_st),
+             "textured_instanced": (t_launch, t_st),
+             "instanced_grid5": (r_launch, r_st)}
     by_path = {name: {path: launch[name]
                       for path, (launch, _st) in paths.items()}
                for name in WRAPPERS}
@@ -2377,7 +2711,8 @@ def main():
         f"{path} {st['msamples_per_s']:.4f}"
         for path, (_l, st) in paths.items()) + f" ({card})")
     times = {**g_times, **v_times, **b_times, **c_times, **d_times,
-             **o_times, **f_times, **cap_times, **x_times}
+             **o_times, **f_times, **cap_times, **x_times, **t_times,
+             **r_times}
     # kernel, source, the TPU kernel's pallas_call, its timed case, the
     # prefix of its other cases
     k1 = ("dense_sweep", "pallas_intersect.py:156")

@@ -10,6 +10,8 @@
       --samples 16 --width 256 --height 256 --chunk 8 --device cuda
   python -m raytracingproject_tpu_torch example:dof_motion \\
       --chunk 32 --device cuda
+  python -m raytracingproject_tpu_torch example:textured_instanced \\
+      --chunk 32 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
@@ -31,6 +33,11 @@ lens from a moving camera, K2 and K3 as for glossy); the scene declares
 adaptive sampling, so it renders through the session's adaptive branch,
 and Msamples/s counts the nominal budget (pixels x samples) over the wall
 time, with the samples actually rendered beside it.
+example:textured_instanced is the textured_instanced configuration
+(instanced_scene at its default grid=4, 256x256, 64 spp: 16 image-textured
+spheres on a checkered ground under a distant sun and a sky, 8,450 prims
+compiled flattened, the BVH built by the port's C++ builder; K2 for the
+closest hit, K3 for the shadow test).
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ def build_parser():
                    "'example:cornell:glossy:fused' | "
                    "'example:volume_sss[:dense]' | "
                    "'example:big_instanced[:onehot2]' | "
-                   "'example:dof_motion'")
+                   "'example:dof_motion' | "
+                   "'example:textured_instanced'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -78,13 +86,15 @@ def load_scene(spec):
                 examples.BIG_INSTANCED_ONEHOT2 if parts[2:] else {})
     if parts == ["example", "dof_motion"]:
         return examples.dof_motion_scene(256, 256, spp=64), {}
+    if parts == ["example", "textured_instanced"]:
+        return examples.instanced_scene(256, 256, spp=64), {}
     if parts == ["example", "cornell", "glossy", "fused"]:
         return examples.cornell_box(spheres="glossy"), examples.GLOSSY_FUSED
     if parts[:2] != ["example", "cornell"] or len(parts) > 3:
         raise SystemExit(f"unknown scene '{spec}' (try example:cornell, "
                          "example:cornell:glossy[:fused], "
-                         "example:volume_sss, example:big_instanced or "
-                         "example:dof_motion)")
+                         "example:volume_sss, example:big_instanced, "
+                         "example:dof_motion or example:textured_instanced)")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})
 

@@ -2,7 +2,8 @@
 
     python -m raytracingproject_tpu_torch.app.profile_render \\
         [--scene glossy|glossy_fused|volume_sss|big_instanced|cornell|
-                 volume_sss_dense|big_instanced_onehot2|dof_motion]
+                 volume_sss_dense|big_instanced_onehot2|dof_motion|
+                 textured_instanced]
         [--device cuda]
         [--out profile.json]
 
@@ -24,7 +25,9 @@ mode and, for the shadow test, any-hit mode; `volume_sss_dense` is
 example:volume_sss:dense at 256x256 through K1's closest mode and its dual
 form; `dof_motion` is example:dof_motion at 256x256 (lens and motion camera
 rays on the glossy box) through K2 and K3, chunk by chunk as its fixed
-render runs.
+render runs; `textured_instanced` is example:textured_instanced at 256x256
+(instanced_scene at grid=4, compiled flattened: 385 clusters x 30
+triangles) through K2 and K3.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
@@ -79,6 +82,9 @@ SCENES = {
                          "dense_closest_kernel", 1, "dense_dual_kernel", 0),
     "dof_motion": ("example:dof_motion", 256, "cluster_walk",
                    "cluster_walk_kernel", 1, K3_KERNEL, 0),
+    "textured_instanced": ("example:textured_instanced", 256,
+                           "cluster_walk", "cluster_walk_kernel", 1,
+                           K3_KERNEL, 0),
 }
 
 

@@ -5,10 +5,13 @@ _wt_intersect_np :260).
 The port's own copy of the JAX package's NumPy builder: the same binning,
 the same SAH leaf test and the same depth-first child order, so a scene
 compiles to bit-identical tables in both packages
-(tests/test_torch_scene.py). At 2,048 prims and more the JAX package
-switches to its C++ builder (native/bvh_builder.cpp); that builder is not
-part of the port yet, so `build_bvh` raises there instead of building a
-different tree.
+(tests/test_torch_scene.py). At 2,048 prims and more both packages switch
+to a C++ builder: the port to its own thread-free copy of the JAX
+package's (native/bvh_builder.cpp, built by g++ at first use), whose swap
+partition orders prims differently from the NumPy builder's mask
+partition. That copy gives the JAX package's tree wherever the JAX
+builder takes no thread, and the same tree up to node and leaf numbering
+where it does (tests/test_torch_bvh_native.py).
 
 Node layout: bounds (M, 12) f32 -- child0 lo/hi, child1 lo/hi;
 children (M, 2) i32 -- >= 0 an inner child, < 0 a leaf encoding
@@ -24,7 +27,7 @@ import numpy as np
 
 NUM_BINS = 16
 MAX_LEAF_SIZE = 4
-# prim count at which the JAX package hands the build to its C++ builder
+# prim count from which both packages build with the C++ builder
 NATIVE_MIN_PRIMS = 2048
 
 
@@ -53,9 +56,10 @@ def build_bvh(lo, hi, max_leaf_size=MAX_LEAF_SIZE):
     hi = np.asarray(hi, np.float32).reshape(-1, 3)
     nprims = len(lo)
     if nprims >= NATIVE_MIN_PRIMS:
-        raise NotImplementedError(
-            f"{nprims} prims: the C++ BVH builder (used from "
-            f"{NATIVE_MIN_PRIMS} prims on) is not ported")
+        from raytracingproject_tpu_torch import native
+        bounds, children, order = native.build_bvh_native(lo, hi,
+                                                          max_leaf_size)
+        return BVHArrays(bounds, children, order, lo.min(0), hi.max(0))
 
     cent = 0.5 * (lo + hi)
 
