@@ -289,6 +289,56 @@ for every shadow test; the first real scene over 512 clusters):
    timed on the copied inputs and K4 on 65,536 camera rays, each printed
    beside phase 31's 640-cluster synthetic table.
 
+instanced_scene(grid=6) (36 spheres, 19,010 flat prims, over the flatten
+limit: the sphere stays instanced, 530 packed prims in one single-level
+table of 577 clusters x 38 triangles with instance rows; K4 for every
+closest hit, K3 for every shadow test, both taking each lane's ray to the
+row's object space):
+
+43. the host compile (example:instanced_grid6) and its dispatch; K4
+   closest and any hit with instance rows against its plain version (t,
+   u, v to the bit off exact-t ties) and its scan-order mirror (every
+   output on every lane), and K3 with instance rows (to the bit) in its
+   surface form on sun shadow rays and its dual form on a seeded random
+   boundary table, on 65,536 random rays from inside the scene's bounds
+   and 65,536 camera rays;
+44. accuracy: 64x64, 128 spp, chunk 16, clamp off, against the JAX
+   package's float64 render raytracingproject_tpu_torch/data/
+   twin_instanced_grid6.npz (python -m
+   tests.test_torch_instanced_single_render6 twin f32|f64): rmse at most
+   twice the JAX package's own float32 render's, pixels off by more than
+   1e-3 at most twice its share or glossy's 0.07%;
+45. full width: 256x256, 64 spp, chunk 32 through the CLI code path
+   (example:instanced_grid6): finite, mean within 0.5% of the JAX
+   package's (JAX_MEAN_GRID6_256), K4 and K3 launched and no other walk;
+   the inputs of each kernel's third call are copied;
+46. counts and times: K4's counting variant on the copied input, its
+   counts equal to tile_queue_order's (with instance rows) on every lane,
+   and K3's; K4 (on the copied input and on camera rays) and K3 (on the
+   copied input, to the bit) held against their plain versions and timed.
+
+instanced_scene(grid=5, nlat=15) (25 spheres of 672 triangles, 16,802
+flat prims: instanced, 674 packed prims, 401 clusters x 48 with instance
+rows; K2 and K3, and in fused-NEE mode K7):
+
+47. the host compile (example:instanced_grid5_nlat15) and its dispatch;
+   K2 closest (to the bit) and any hit, and K3's surface and dual forms
+   (to the bit), with instance rows, on random and camera rays as in 43;
+   K7 with instance rows on those rays paired with the sun shadow rays
+   of their first hits (blocked equal, the closest hit to the bit on
+   every lane), and with the closest ray switched off;
+48. full width: 256x256, 64 spp, chunk 32 through the CLI code path,
+   unfused (example:instanced_grid5_nlat15: K2 and K3 launched and no
+   other walk) and fused (:fused: K7 launched and no other walk), each
+   finite with a mean within 0.5% of the JAX package's unfused render's
+   (JAX_MEAN_GRID5N15_256); the inputs of each kernel's third call are
+   copied;
+49. counts and times: the counting variants of K2, K3 and K7 on the
+   copied inputs (outputs equal to the plain launch's); K2 and K3 (to the
+   bit) and K7 (blocked equal, the closest hit to the bit) held against
+   their plain versions on them and timed, and K2 and K3 on K7's rays
+   beside it.
+
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. A kernel's
 time is the median of three timings, each the median of 20 runs. Each
@@ -298,10 +348,12 @@ must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
 H100 SXM's published peaks). The earlier designs' times are measured by
 compare_walks.py (K4, K5; K6 with --kernel k6) and recorded in PERF.md,
 not here. The script
-takes about 8 minutes, the kernels' build included.
+takes about 10 minutes, the kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
-describing each kernel, and {"ok": true, "device": {...}}.
+describing each kernel (with its modes in this run, and for K2, K3, K4
+and K7 their instance-row mode's launches and time), and {"ok": true,
+"device": {...}}.
 """
 
 import contextlib
@@ -437,6 +489,39 @@ TWIN_R04, TWIN_F32_R04 = ("artifacts/twin_f64_r04.npz",
 # mean 128 8 8 5)
 JAX_MEAN_TEX5_128 = 0.21918006322018926
 GRID5_SIZE, GRID5_SPP, GRID5_CHUNK = 128, 8, 8
+# instance rows in single-level tables: instanced_scene(grid=6) (19,010
+# flat prims, over the flatten limit: 577 clusters x 38 triangles with
+# instance rows; K4 and K3) and instanced_scene(grid=5, nlat=15) (16,802:
+# 401 x 48; K2 and K3, K7 in fused-NEE mode), at textured_instanced's
+# 256x256x64 in chunks of 32. The JAX package's means of those renders
+# (render_samples_regen on the CPU, float64 sum, strips of 64 rows;
+# python -m tests.test_torch_instanced_single_render6 mean 256 64 32 6 12,
+# and ... 5 15)
+JAX_MEAN_GRID6_256 = 0.21469840995201514
+JAX_MEAN_GRID5N15_256 = 0.21926015638785956
+INST_SIZE, INST_SPP, INST_CHUNK = 256, 64, 32
+# grid=6's 64x64x128 twin, clamp off: the JAX package's render in float32
+# ("f32_jax") and in float64 ("f64"; python -m
+# tests.test_torch_instanced_single_render6 twin f32|f64); the gate is
+# twice the float32 render's own rmse against the float64 one
+TWIN_GRID6 = "raytracingproject_tpu_torch/data/twin_instanced_grid6.npz"
+# each kernel's modes in this run, and, for the single-level walks whose
+# instance-row mode is in this run, that mode's timed case and the paths
+# that launch it
+MODES = {"dense_closest": ["closest", "mt"], "dense_any": ["any"],
+         "dense_dual": ["dual"],
+         "cluster_walk": ["closest", "any", "instance rows"],
+         "occlusion_walk": ["surface", "dual", "instance rows"],
+         "tile_walk": ["closest", "any", "instance rows"],
+         "cluster2_walk": ["closest", "any", "instance rows"],
+         "onehot2_walk": ["closest", "any", "instance rows"],
+         "dual_walk": ["dual", "instance rows"]}
+INSTANCE_CASES = {"cluster_walk": "K2 closest render (grid=5 nlat=15)",
+                  "occlusion_walk": "K3 surface render (grid=6)",
+                  "tile_walk": "K4 closest render (grid=6)",
+                  "dual_walk": "K7 dual render (grid=5 nlat=15)"}
+INSTANCE_PATHS = ("instanced_grid6", "instanced_grid5_nlat15",
+                  "instanced_grid5_nlat15_fused")
 # timed renders per driver in the fixed-vs-adaptive measurement
 DOF_RENDERS = 3
 HBM_BYTES_PER_S = 3.35e12
@@ -635,26 +720,27 @@ SCAN_COUNTS = {"tile_walk": ("warp steps", "rows tested", "entries read"),
                "onehot2_walk": ORDER_COUNTS["onehot2_walk"]}
 
 
-def order_mirror(name, args, any_hit, queue=False):
+def order_mirror(name, args, any_hit, queue=False, instances=False):
     """The scan-order (queue=False) or queue-order mirror of K4
-    ("tile_walk"; args: the walk's eight positional arguments), K5
-    ("cluster2_walk") or K6 ("onehot2_walk"; args: sc_bounds, cbounds,
-    ctable, cluster_tris, gmax, o, d, tmin, tmax, visibility; instance
-    rows) on the kernel's inputs: (hit dict, counts), for K6 also the
-    warp's inner steps."""
+    ("tile_walk"; args: the walk's eight positional arguments; instance
+    rows with instances=True), K5 ("cluster2_walk") or K6
+    ("onehot2_walk"; args: sc_bounds, cbounds, ctable, cluster_tris, gmax,
+    o, d, tmin, tmax, visibility; instance rows) on the kernel's inputs:
+    (hit dict, counts), for K6 also the warp's inner steps."""
     fn = getattr(module(name), ORDER_MIRRORS[name][int(queue)])
     kw = {"shadow_any_hit": any_hit}
-    if name in TWO_LEVEL:
+    if name in TWO_LEVEL or instances:
         kw["has_instances"] = True
     return fn(*args, **kw)
 
 
-def held_to_scan_order(label, name, args, any_hit, got):
+def held_to_scan_order(label, name, args, any_hit, got, instances=False):
     """Every output of K4, K5 or K6 equal to its scan-order mirror's on
     every lane, exact-t ties included: the kernel visits the earlier
     design's clusters in that design's order. Returns the mirror's
     counts."""
-    mirror, counts = order_mirror(name, args, any_hit)[:2]
+    mirror, counts = order_mirror(name, args, any_hit,
+                                  instances=instances)[:2]
     for k in mirror:
         assert torch.equal(got[k], mirror[k]), \
             f"{label}: output {k} differs from the scan-order mirror's"
@@ -677,14 +763,14 @@ def exact_off_ties(compare):
     return held
 
 
-def in_scan_order(compare, name, args, any_hit):
+def in_scan_order(compare, name, args, any_hit, instances=False):
     """A K4, K5 or K6 case's check: `compare` (for a closest hit t, u, v to
     the bit off the ties), then held_to_scan_order."""
     base = compare if any_hit else exact_off_ties(compare)
 
     def held(label, ref, got, *extra):
         err = base(label, ref, got, *extra)
-        held_to_scan_order(label, name, args, any_hit, got)
+        held_to_scan_order(label, name, args, any_hit, got, instances)
         return err
     return held
 
@@ -699,7 +785,7 @@ def column_stats(cnt, names):
             for j, nm in enumerate(names)}
 
 
-def order_count_phase(label, name, args, any_hit):
+def order_count_phase(label, name, args, any_hit, instances=False):
     """The counting variant of K4, K5 or K6 on one input: its outputs
     equal the plain launch's and the scan-order mirror's, and its counts
     equal the queue-order mirror's on every lane. Prints and returns
@@ -708,7 +794,7 @@ def order_count_phase(label, name, args, any_hit):
     (the sum over its groups of the most rows a lane read) against the
     rows a lane read."""
     kw = {"shadow_any_hit": any_hit}
-    if name in TWO_LEVEL:
+    if name in TWO_LEVEL or instances:
         kw["has_instances"] = True
     kern = wrapper(name)
     ref = kern(*args, **kw)
@@ -716,8 +802,9 @@ def order_count_phase(label, name, args, any_hit):
     sync()
     assert all(torch.equal(ref[k], got[k]) for k in ref), \
         f"{label}: the counting variant's outputs differ"
-    scnt = held_to_scan_order(label, name, args, any_hit, got)
-    queue = order_mirror(name, args, any_hit, queue=True)
+    scnt = held_to_scan_order(label, name, args, any_hit, got, instances)
+    queue = order_mirror(name, args, any_hit, queue=True,
+                         instances=instances)
     assert torch.equal(cnt, queue[1]), \
         f"{label}: the counts differ from the queue-order mirror's"
     st = {"kernel": column_stats(cnt, ORDER_COUNTS[name]),
@@ -781,7 +868,7 @@ def count_phase(label, name, rec):
         ref = kern(*args)
         got, cnt = kern(*args, counts=True)
     else:
-        kw = {"shadow_any_hit": args[8]}
+        kw = {"shadow_any_hit": args[8], "has_instances": args[9]}
         ref = kern(*args[:8], **kw)
         got, cnt = kern(*args[:8], counts=True, **kw)
     sync()
@@ -829,20 +916,24 @@ def walk_bound(args, kw, out):
     Bytes: tables, rays and results once. Operations: every lane tests
     every cluster box once; a closest-hit lane tests the triangles of each
     cluster it enters before its final t (a miss: every cluster it
-    enters); an any-hit lane that hits tests one triangle."""
+    enters); an any-hit lane that hits tests one triangle. With instance
+    rows (has_instances in kw) each cluster a lane tests also costs it a
+    transform of its ray (XFORM_OPS), as in cluster2_bound."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     cb, ctab, ct, o, d, tmin, tmax, vis = args[:8]
     any_hit = bool(kw.get("shadow_any_hit", False))
+    xform = XFORM_OPS if kw.get("has_instances", False) else 0
     entry = ci.entry_table(cb, o, d, tmin, tmax)
     entered = entry < ci.INF
     if not any_hit:
         entered = entered & (entry < out["t"][None])
-    tris = (entered.to(torch.float64)
-            * _prims_per_cluster(ctab, int(ct))[:, None]).sum(0)
+    per = _prims_per_cluster(ctab, int(ct)) * TRI_OPS + xform
+    row_ops = (entered.to(torch.float64) * per[:, None]).sum(0)
     if any_hit:
-        tris = torch.where(out["prim"] >= 0, 1.0, tris)
+        row_ops = torch.where(out["prim"] >= 0, float(TRI_OPS + xform),
+                              row_ops)
     n, c = o.shape[0], cb.shape[0]
-    ops = n * c * SLAB_OPS + float(tris.sum()) * TRI_OPS
+    ops = n * c * SLAB_OPS + float(row_ops.sum())
     return _bound(_nbytes(cb, ctab, o, d, tmin, tmax, vis,
                           *out.values()), ops)
 
@@ -850,17 +941,21 @@ def walk_bound(args, kw, out):
 def occlusion_bound(args, out):
     """(bound ms, bound_by) of one K3 call: every lane tests every cluster
     box once and the triangles of each cluster it enters below its final
-    gate (a blocked lane at least one triangle)."""
+    gate (a blocked lane at least one triangle); with instance rows
+    (args[11]) a transform of its ray (XFORM_OPS) for each such cluster."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     cb, ctab, cbd, ct, o, d, tmin, tmaxc, tmaxa = args[:9]
+    xform = XFORM_OPS if len(args) > 11 and args[11] else 0
     t_b, t_o, blocked = out
     entry = ci.entry_table(cb, o, d, tmin, torch.maximum(tmaxc, tmaxa))
     gate = ci.occlusion_gate(t_b, t_o, blocked, tmaxc, tmaxa)
-    tris = ((entry < gate[None]).to(torch.float64)
-            * _prims_per_cluster(ctab, int(ct))[:, None]).sum(0)
-    tris = torch.where(blocked, torch.clamp(tris, min=1.0), tris)
+    per = _prims_per_cluster(ctab, int(ct)) * TRI_OPS + xform
+    row_ops = ((entry < gate[None]).to(torch.float64) * per[:, None]).sum(0)
+    row_ops = torch.where(blocked,
+                          torch.clamp(row_ops, min=float(TRI_OPS + xform)),
+                          row_ops)
     n, c = o.shape[0], cb.shape[0]
-    ops = n * c * SLAB_OPS + float(tris.sum()) * TRI_OPS
+    ops = n * c * SLAB_OPS + float(row_ops.sum())
     return _bound(_nbytes(cb, ctab, cbd, o, d, tmin, tmaxc, tmaxa,
                           t_b, t_o, blocked), ops)
 
@@ -1046,7 +1141,7 @@ def _recorded_case(name, rec, compare):
     if name == "occlusion_walk":
         return (lambda: wrapper(name)(*args), lambda: _plain(name)(*args),
                 name, compare, lambda out: occlusion_bound(args, out))
-    kw = {"shadow_any_hit": args[8]}
+    kw = {"shadow_any_hit": args[8], "has_instances": args[9]}
     return (lambda: wrapper(name)(*args[:8], **kw),
             lambda: _plain(name)(*args),
             name, compare, lambda out: walk_bound(args, kw, out))
@@ -1686,39 +1781,41 @@ def compare_dual_walk(name, ref, got):
     return 0.0
 
 
-def dual_bound(args, out):
+def dual_bound(args, out, instances=False):
     """(bound ms, bound_by) of one K7 call. Bytes: tables, both rays and
     results once. Operations: each ray with a non-empty window tests every
     cluster box once; the closest ray tests the triangles of each cluster
     it enters before its final t, the any-hit ray one triangle where it is
-    blocked and else those of every cluster it enters."""
+    blocked and else those of every cluster it enters; with instance rows
+    each ray a transform (XFORM_OPS) at each cluster it tests."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     (cb, ctab, ct, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a,
      vis_a) = args
     hit, blocked = out
-    per = _prims_per_cluster(ctab, int(ct))[:, None]
+    xform = XFORM_OPS if instances else 0
+    per = (_prims_per_cluster(ctab, int(ct)) * TRI_OPS + xform)[:, None]
     live_c, live_a = tmax_c > tmin_c, tmax_a > tmin_a
     entry = ci.entry_table(cb, o_c, d_c, tmin_c, tmax_c)
     in_c = (entry < ci.INF) & (entry < hit["t"][None]) & live_c[None]
-    tris = (in_c.to(torch.float64) * per).sum(0)
+    row_ops = (in_c.to(torch.float64) * per).sum(0)
     entry = ci.entry_table(cb, o_a, d_a, tmin_a, tmax_a)
     in_a = (entry < ci.INF) & live_a[None]
-    tris = tris + torch.where(blocked, 1.0,
-                              (in_a.to(torch.float64) * per).sum(0))
+    row_ops = row_ops + torch.where(blocked, float(TRI_OPS + xform),
+                                    (in_a.to(torch.float64) * per).sum(0))
     boxes = float(live_c.sum() + live_a.sum()) * cb.shape[0]
-    ops = boxes * SLAB_OPS + float(tris.sum()) * TRI_OPS
+    ops = boxes * SLAB_OPS + float(row_ops.sum())
     return _bound(_nbytes(*args, *hit.values(), blocked), ops)
 
 
 def _dual_args(rec):
-    """A recorded K7 call's 13 table and ray arguments, in order."""
+    """A recorded K7 call's 13 table and ray arguments, in order, and its
+    has_instances."""
     ra = inspect.signature(wrapper("dual_walk")).bind(*rec["args"],
                                                       **rec["kw"])
     ra.apply_defaults()
     a = ra.arguments
-    assert not a["has_instances"] and not a["has_motion"]
-    assert not a["counts"]
-    return tuple(a.values())[:13]
+    assert not a["has_motion"] and not a["counts"]
+    return tuple(a.values())[:13], bool(a["has_instances"])
 
 
 def dual_count_phase(label, rec):
@@ -1728,10 +1825,10 @@ def dual_count_phase(label, rec):
     boxes tested, beside the earlier design's box tests (a rescan of every
     box for both rays on every visit and one that found nothing:
     (rows + 1) x 2C)."""
-    args = _dual_args(rec)
+    args, inst = _dual_args(rec)
     k7 = wrapper("dual_walk")
-    hit, blk = k7(*args)
-    ghit, gblk, cnt = k7(*args, counts=True)
+    hit, blk = k7(*args, has_instances=inst)
+    ghit, gblk, cnt = k7(*args, has_instances=inst, counts=True)
     sync()
     assert torch.equal(blk, gblk) and all(
         torch.equal(hit[k], ghit[k]) for k in hit), \
@@ -1755,16 +1852,19 @@ def dual_count_phase(label, rec):
     return st
 
 
-def dual_counted_bound(args):
+def dual_counted_bound(args, instances=False):
     """(bound ms) of the tests a K7 call ran, from its counting variant:
     its box tests (SLAB_OPS each) and, for each row read, the row's
     triangles against one ray, or both where the row served both (the
-    table's mean triangles per row); bytes as dual_bound's."""
-    hit, blk, cnt = wrapper("dual_walk")(*args, counts=True)
+    table's mean triangles per row), with instance rows a transform for
+    each ray a row served; bytes as dual_bound's."""
+    hit, blk, cnt = wrapper("dual_walk")(*args, has_instances=instances,
+                                         counts=True)
     c = cnt.to(torch.float64)
-    per_row = float(_prims_per_cluster(args[1], int(args[2])).mean())
+    per_row = float(_prims_per_cluster(args[1], int(args[2])).mean()) \
+        * TRI_OPS + (XFORM_OPS if instances else 0)
     ops = float(c[:, 3].sum()) * SLAB_OPS \
-        + float((c[:, 0] + c[:, 1]).sum()) * per_row * TRI_OPS
+        + float((c[:, 0] + c[:, 1]).sum()) * per_row
     return _bound(_nbytes(*args, *hit.values(), blk), ops)[0]
 
 
@@ -1830,12 +1930,14 @@ def check_dual(kg, n_check, rng):
     return {"dual_walk": max(err, e)}
 
 
-def fused_main_path_checks(kg, side, card, rec):
+def fused_main_path_checks(kg, side, card, rec, suffix=""):
     """At side x side lanes: K7 on the fused render's recorded input, and
     on the same rays K2 (the closest half) and K3's surface form (the
-    any-hit half), the two calls the union walk replaces."""
+    any-hit half), the two calls the union walk replaces (instance rows
+    where the recorded call has them). Each case's name ends in
+    `suffix`."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
-    args = _dual_args(rec)
+    args, inst = _dual_args(rec)
     (cb, ctab, ct, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a,
      _vis_a) = args
     n = o_c.shape[0]
@@ -1854,23 +1956,27 @@ def fused_main_path_checks(kg, side, card, rec):
     # the unfused step gives a lane without a shadow test the empty window
     # [tmin, tmin]
     occ = (cb, ctab, kg["dscene"]["cluster_boundary"], ct, o_a, d_a, tmin_a,
-           tmin_a, torch.maximum(tmax_a, tmin_a), 1, 128)
+           tmin_a, torch.maximum(tmax_a, tmin_a), 1, 128, inst)
+    kw = {"has_instances": inst}
     cases = {
         "K7 dual render": (
-            lambda: k7(*args), lambda: ci.intersect_clusters_dual(*args),
+            lambda: k7(*args, **kw),
+            lambda: ci.intersect_clusters_dual(*args, **kw),
             "dual_walk", compare_dual_walk,
-            lambda out: dual_bound(args, out),
-            lambda: dual_counted_bound(args)),
+            lambda out: dual_bound(args, out, inst),
+            lambda: dual_counted_bound(args, inst)),
         "K2 closest on K7's render input": (
-            lambda: k2(*closest), lambda: ci.intersect_clusters(*closest),
+            lambda: k2(*closest, **kw),
+            lambda: ci.intersect_clusters(*closest, **kw),
             "cluster_walk", exactly(compare_hits),
-            lambda out: walk_bound(closest, {}, out)),
+            lambda out: walk_bound(closest, kw, out)),
         "K3 surface on K7's render input": (
             lambda: k3(*occ), lambda: ci.occlusion_clusters(*occ),
             "occlusion_walk", exactly(compare_occlusion),
             lambda out: occlusion_bound(occ, out)),
     }
-    return timed_cases(cases, n, card)
+    return timed_cases({name + suffix: case for name, case in cases.items()},
+                       n, card)
 
 
 def adaptive_checks(dev, card):
@@ -2223,15 +2329,17 @@ def dof_main_path_checks(kg, card, rec):
     return timed_cases(cases, n, card)
 
 
-def check_single_level(kg, rng, walk, label):
-    """On a real scene's flattened single-level tables: K2 (walk=
-    "cluster_walk") or K4 ("tile_walk"), closest and any hit, on 65,536
-    random rays from inside the scene's bounds and 65,536 camera rays,
-    and K3's surface form on sun shadow rays from their first hits, each
-    against its plain version. K2's closest hit and K3 equal to the bit,
-    K4's t, u, v to the bit off exact-t ties and every output equal to
-    its scan-order mirror's on every lane, ties included; any-hit masks
-    equal. Returns max |t| error per kernel."""
+def check_single_level(kg, rng, walk, label, instances=False):
+    """On a real scene's single-level tables (flattened, or with instance
+    rows where instances=True): K2 (walk="cluster_walk") or K4
+    ("tile_walk"), closest and any hit, on 65,536 random rays from inside
+    the scene's bounds and 65,536 camera rays, and K3's surface form on
+    sun shadow rays from their first hits, each against its plain
+    version; with instance rows also K3's dual form on the random and
+    camera rays with a seeded random boundary table. K2's closest hit and
+    K3 equal to the bit, K4's t, u, v to the bit off exact-t ties and
+    every output equal to its scan-order mirror's on every lane, ties
+    included; any-hit masks equal. Returns max |t| error per kernel."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     ds = kg["dscene"]
     cb, ct_, cbd = ds["cluster_bounds"], ds["cluster_table"], \
@@ -2241,6 +2349,7 @@ def check_single_level(kg, rng, walk, label):
     side = int(round(N_CHECK ** 0.5))
     lo, hi = scene_box(kg)
     errs = {walk: 0.0, "occlusion_walk": 0.0}
+    kw = {"has_instances": True} if instances else {}
     for rays, (o, d), tmin0 in (
             ("random", random_rays(N_CHECK, rng, dev, lo, hi), 1e-4),
             ("camera", camera_rays(kg, side, side, dev), 0.0)):
@@ -2249,28 +2358,41 @@ def check_single_level(kg, rng, walk, label):
                 torch.full((n,), 1e30, device=dev),
                 torch.full((n,), 1, dtype=torch.int32, device=dev))
         for any_hit in (False, True):
-            ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit)
-            got = wrapper(walk)(*args, shadow_any_hit=any_hit)
+            ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit, **kw)
+            got = wrapper(walk)(*args, shadow_any_hit=any_hit, **kw)
             sync()
             name = (f"{walk} {'any-hit' if any_hit else 'closest'} {rays} "
                     f"{label}")
             if walk == "tile_walk":
-                e = in_scan_order(compare_walk, walk, args, any_hit)(
-                    name, ref, got, any_hit)
+                e = in_scan_order(compare_walk, walk, args, any_hit,
+                                  instances)(name, ref, got, any_hit)
             elif any_hit:
                 e = compare_any_hit(name, ref, got)
             else:
                 e = exactly(compare_hits)(name, ref, got)
             errs[walk] = max(errs[walk], e)
         so, sd, stmin, stmax = sun_shadow_rays(
-            kg, o, d, rng, hit=ci.intersect_clusters(*args))
-        occ = (cb, ct_, cbd, ctris, so, sd, stmin, stmin, stmax, 1, 128)
-        ref = ci.occlusion_clusters(*occ)
-        got = wrapper("occlusion_walk")(*occ)
-        sync()
-        errs["occlusion_walk"] = max(errs["occlusion_walk"], exactly(
-            compare_occlusion)(f"occlusion_walk surface sun shadow {rays} "
-                               f"{label}", ref, got))
+            kg, o, d, rng, hit=ci.intersect_clusters(*args, **kw))
+        forms = [("surface sun shadow", (cb, ct_, cbd, ctris, so, sd, stmin,
+                                         stmin, stmax, 1, 128, instances))]
+        if instances:
+            planted = torch.tensor(
+                rng.integers(0, 2, cbd.shape).astype(np.float32), device=dev)
+            tmaxc, tmaxa = (torch.tensor(a.astype(np.float32), device=dev)
+                            for a in (rng.uniform(1, 40, n), np.where(
+                                rng.uniform(size=n) < 0.5,
+                                rng.uniform(1, 40, n), 1e30)))
+            forms.append(("planted dual", (cb, ct_, planted, ctris, o, d,
+                                           args[5], tmaxc, tmaxa, 1, 128,
+                                           True)))
+        for form, occ in forms:
+            ref = ci.occlusion_clusters(*occ)
+            got = wrapper("occlusion_walk")(*occ)
+            sync()
+            errs["occlusion_walk"] = max(errs["occlusion_walk"], exactly(
+                lambda *a: compare_occlusion(
+                    *a, need_boundary=form != "surface sun shadow"))(
+                    f"occlusion_walk {form} {rays} {label}", ref, got))
     return errs
 
 
@@ -2401,6 +2523,135 @@ def grid5_main_path_checks(kg, card, rec, cap_times):
             f"{a['ms']:.4f} ms (bound {a['bound_ms']:.5f}); beside "
             f"{cap}, {CAP_CLUSTERS} synthetic clusters, {b['lanes']} "
             f"lanes: {b['ms']:.4f} ms (bound {b['bound_ms']:.5f}) ({card})")
+    return times, errs
+
+
+def instanced_compile(spec, dev, prims, clusters, ct, walk):
+    """Phases 43 and 47: the host compile of an instanced example through
+    the CLI's scene loader: its packed prims, clusters x triangles in one
+    single-level table with instance rows, and the dispatch (`walk` for
+    every closest hit, K3 for every shadow test)."""
+    from raytracingproject_tpu_torch.app import cli
+    from raytracingproject_tpu_torch.ops import integrator as integ
+    scene, flags = cli.load_scene(spec)
+    assert not flags
+    kg, compile_s, bvh_s = timed_compile(scene, dev)
+    ds = kg["dscene"]
+    log(f"[compile] {spec}: {ds['prim_table'].shape[0]} packed prims, "
+        f"{ds['cluster_bounds'].shape[0]} clusters x {kg['cluster_tris']} "
+        f"triangles with instance rows, host compile {compile_s:.3f} s, of "
+        f"which the C++ BVH builder {bvh_s:.4f} s")
+    assert kg["has_instances"] and "sc_bounds" not in ds
+    assert not kg["use_brute"] and ds["prim_table"].shape[0] == prims
+    assert ds["cluster_bounds"].shape[0] == clusters
+    assert kg["cluster_tris"] == ct
+    assert integ._closest_walk_name(kg) == walk
+    assert integ._use_occlusion_walk(kg)
+    return kg
+
+
+def check_dual_instanced(kg, rng, label):
+    """K7 with instance rows against its plain version: 65,536 random
+    closest rays from inside the scene's bounds and 65,536 camera rays,
+    each paired with the sun shadow ray from its first hit (the empty
+    window where it misses), and the random pairs once more with the
+    closest ray switched off: blocked equal, the closest hit to the bit
+    on every lane. Returns the max |t| error."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    dev = ds["cluster_table"].device
+    tabs = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]))
+    lo, hi = scene_box(kg)
+    side = int(round(N_CHECK ** 0.5))
+    err = 0.0
+    for rays, (o, d), tmin0 in (
+            ("random", random_rays(N_CHECK, rng, dev, lo, hi), 1e-4),
+            ("camera", camera_rays(kg, side, side, dev), 0.0)):
+        n = o.shape[0]
+        tmin = torch.full((n,), tmin0, device=dev)
+        big = torch.full((n,), 1e30, device=dev)
+        vis = torch.full((n,), 1, dtype=torch.int32, device=dev)
+        hit = ci.intersect_clusters(*tabs, o, d, tmin, big, vis,
+                                    has_instances=True)
+        shadow = (*sun_shadow_rays(kg, o, d, rng, hit=hit),
+                  torch.full((n,), 128, dtype=torch.int32, device=dev))
+        pairs = [(rays, big)]
+        if rays == "random":
+            pairs.append(("random, closest ray off",
+                          torch.full((n,), -1.0, device=dev)))
+        for name, tmax_c in pairs:
+            args = (*tabs, o, d, tmin, tmax_c, vis, *shadow)
+            ref = ci.intersect_clusters_dual(*args, has_instances=True)
+            got = wrapper("dual_walk")(*args, has_instances=True)
+            sync()
+            err = max(err, compare_dual_walk(f"dual_walk {name} {label}",
+                                             ref, got))
+            assert bool(got[1].any()) and not bool(got[1].all())
+    return {"dual_walk": err}
+
+
+def grid6_main_path_checks(kg, card, rec):
+    """Phase 46: at the render's width, with instance rows, K4 on the
+    grid=6 render's recorded closest-hit input (t, u, v to the bit off
+    exact-t ties, every output equal to its scan-order mirror's) and on
+    camera rays, and K3's surface form on its recorded input (to the
+    bit), held against their plain versions and timed."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    rk4 = _positional("tile_walk", rec["tile_walk"])
+    assert rk4[9], "the recorded K4 call has no instance rows"
+    assert _positional("occlusion_walk", rec["occlusion_walk"])[11], \
+        "the recorded K3 call has no instance rows"
+    n = rk4[3].shape[0]
+    kinds, shares = _lane_visibility("tile_walk", rec["tile_walk"])
+    log(f"[main-path] recorded K4 input (grid=6): visibility values {kinds},"
+        f" lane shares {shares}")
+    assert len(kinds) > 1, "the recorded K4 call holds no bounce rays"
+    o, d = camera_rays(kg, INST_SIZE, INST_SIZE, ds["cluster_bounds"].device)
+    cam = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
+           o, d, torch.zeros(n, device=o.device),
+           torch.full((n,), 1e30, device=o.device),
+           torch.full((n,), 1, dtype=torch.int32, device=o.device))
+    kw = {"has_instances": True}
+    return timed_cases({
+        "K4 closest render (grid=6)": _recorded_case(
+            "tile_walk", rec["tile_walk"],
+            in_scan_order(compare_hits, "tile_walk", rk4[:8], rk4[8], True)),
+        "K4 closest camera (grid=6)": (
+            lambda: wrapper("tile_walk")(*cam, **kw),
+            lambda: ci.intersect_clusters(*cam, **kw), "tile_walk",
+            in_scan_order(compare_hits, "tile_walk", cam, False, True),
+            lambda out: walk_bound(cam, kw, out)),
+        "K3 surface render (grid=6)": _recorded_case(
+            "occlusion_walk", rec["occlusion_walk"],
+            exactly(compare_occlusion)),
+    }, n, card)
+
+
+def grid5n15_main_path_checks(kg, card, rec, frec):
+    """Phase 49: at the render's width, with instance rows, K2's closest
+    hit and K3's surface form on the unfused render's recorded inputs (to
+    the bit), then K7 on the fused render's recorded input (blocked equal,
+    the closest hit to the bit) with K2 and K3 on its rays beside it, each
+    held against its plain version and timed."""
+    assert _positional("cluster_walk", rec["cluster_walk"])[9], \
+        "the recorded K2 call has no instance rows"
+    n = rec["cluster_walk"]["args"][4].shape[0]
+    kinds, shares = _lane_visibility("cluster_walk", rec["cluster_walk"])
+    log(f"[main-path] recorded K2 input (grid=5 nlat=15): visibility values "
+        f"{kinds}, lane shares {shares}")
+    assert len(kinds) > 1, "the recorded K2 call holds no bounce rays"
+    times, errs = timed_cases({
+        "K2 closest render (grid=5 nlat=15)": _recorded_case(
+            "cluster_walk", rec["cluster_walk"], exactly(compare_hits)),
+        "K3 surface render (grid=5 nlat=15)": _recorded_case(
+            "occlusion_walk", rec["occlusion_walk"],
+            exactly(compare_occlusion)),
+    }, n, card)
+    t2, e = fused_main_path_checks(kg, INST_SIZE, card, frec,
+                                   suffix=" (grid=5 nlat=15)")
+    times.update(t2)
+    merge(errs, e)
     return times, errs
 
 
@@ -2694,6 +2945,70 @@ def main():
     r_times, e = grid5_main_path_checks(r_kg, card, r_rec, cap_times)
     merge(errs, e)
 
+    # ---- instanced_scene(grid=6), 577 clusters with instance rows: 43.
+    # compile and kernel checks; 44. accuracy; 45. full width; 46. counts
+    # and times ----
+    i_kg = instanced_compile("example:instanced_grid6", dev, 530, 577, 38,
+                             "tile_walk")
+    merge(errs, check_single_level(i_kg, rng, "tile_walk", "grid=6",
+                                   instances=True))
+    pair6 = np.load(TWIN_GRID6)
+    d32 = pair6["f32_jax"] - pair6["f64"]
+    rmse6 = float(np.sqrt(np.mean(d32 * d32)))
+    frac6 = float((np.abs(d32).sum(-1) > 1e-3).mean())
+    log(f"[accuracy] instanced_grid6: the JAX package's f32 render vs the "
+        f"twin: rmse {rmse6:.3e}, pixels off >1e-3 {frac6:.5f}")
+    accuracy(dev, "instanced_grid6",
+             examples.instanced_scene(64, 64, spp=128, grid=6), {},
+             2.0 * rmse6, max(2.0 * frac6, TEX_FRAC_GATE),
+             twin=pair6["f64"], twin_f32=pair6["f32_jax"])
+    i_launch, i_rec, i_st = full_width(
+        card, "example:instanced_grid6", INST_SIZE, INST_SPP,
+        JAX_MEAN_GRID6_256, 0.005, ("tile_walk", "occlusion_walk"),
+        chunk=INST_CHUNK)
+    assert {k for k, v in i_launch.items() if v} == {
+        "tile_walk", "occlusion_walk"}, "grid=6: another walk launched"
+    rk4 = _positional("tile_walk", i_rec["tile_walk"])
+    counts["tile_walk"]["grid=6 render"] = order_count_phase(
+        "K4 closest, grid=6 render (instance rows)", "tile_walk", rk4[:8],
+        rk4[8], instances=True)
+    counts["occlusion_walk"]["grid=6 render"] = count_phase(
+        "K3 surface, grid=6 render (instance rows)", "occlusion_walk",
+        i_rec["occlusion_walk"])
+    i_times, e = grid6_main_path_checks(i_kg, card, i_rec)
+    merge(errs, e)
+
+    # ---- instanced_scene(grid=5, nlat=15), 401 clusters with instance
+    # rows: 47. compile and kernel checks; 48. full width, unfused and
+    # fused; 49. counts and times ----
+    n_kg = instanced_compile("example:instanced_grid5_nlat15", dev, 674, 401,
+                             48, "cluster_walk")
+    merge(errs, check_single_level(n_kg, rng, "cluster_walk",
+                                   "grid=5 nlat=15", instances=True))
+    merge(errs, check_dual_instanced(n_kg, rng, "grid=5 nlat=15"))
+    n_launch, n_rec, n_st = full_width(
+        card, "example:instanced_grid5_nlat15", INST_SIZE, INST_SPP,
+        JAX_MEAN_GRID5N15_256, 0.005, ("cluster_walk", "occlusion_walk"),
+        chunk=INST_CHUNK)
+    assert {k for k, v in n_launch.items() if v} == {
+        "cluster_walk", "occlusion_walk"}, "grid=5 nlat=15: another walk"
+    nf_launch, nf_rec, nf_st = full_width(
+        card, "example:instanced_grid5_nlat15:fused", INST_SIZE, INST_SPP,
+        JAX_MEAN_GRID5N15_256, 0.005, ("dual_walk",), chunk=INST_CHUNK)
+    assert {k for k, v in nf_launch.items() if v} == {"dual_walk"}, \
+        "grid=5 nlat=15 fused: another walk launched"
+    for name, label in (("cluster_walk", "K2 closest"),
+                        ("occlusion_walk", "K3 surface")):
+        counts[name]["grid=5 nlat=15 render"] = count_phase(
+            f"{label}, grid=5 nlat=15 render (instance rows)", name,
+            n_rec[name])
+    counts["dual_walk"]["grid=5 nlat=15 fused render"] = dual_count_phase(
+        "K7, grid=5 nlat=15 fused render (instance rows)",
+        nf_rec["dual_walk"])
+    n_times, e = grid5n15_main_path_checks(n_kg, card, n_rec,
+                                           nf_rec["dual_walk"])
+    merge(errs, e)
+
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),
              "cornell_diffuse": (c_launch, c_st),
@@ -2703,7 +3018,10 @@ def main():
              "dof_motion_adaptive": (a_launch, a_st),
              "dof_motion_adaptive_fixed": (x_launch, x_st),
              "textured_instanced": (t_launch, t_st),
-             "instanced_grid5": (r_launch, r_st)}
+             "instanced_grid5": (r_launch, r_st),
+             "instanced_grid6": (i_launch, i_st),
+             "instanced_grid5_nlat15": (n_launch, n_st),
+             "instanced_grid5_nlat15_fused": (nf_launch, nf_st)}
     by_path = {name: {path: launch[name]
                       for path, (launch, _st) in paths.items()}
                for name in WRAPPERS}
@@ -2712,7 +3030,7 @@ def main():
         for path, (_l, st) in paths.items()) + f" ({card})")
     times = {**g_times, **v_times, **b_times, **c_times, **d_times,
              **o_times, **f_times, **cap_times, **x_times, **t_times,
-             **r_times}
+             **r_times, **i_times, **n_times}
     # kernel, source, the TPU kernel's pallas_call, its timed case, the
     # prefix of its other cases
     k1 = ("dense_sweep", "pallas_intersect.py:156")
@@ -2750,6 +3068,18 @@ def main():
                       if c.startswith(prefix)}})
         if "counted_bound_ms" in tm:
             kern[-1]["counted_bound_ms"] = tm["counted_bound_ms"]
+        kern[-1]["modes"] = MODES[name]
+        if name in INSTANCE_CASES:
+            # the instance-row mode: its launches on the instanced paths
+            # and its time on its own recorded input
+            tc = INSTANCE_CASES[name]
+            ti = times[tc]
+            n_inst = sum(by_path[name][p] for p in INSTANCE_PATHS)
+            assert n_inst > 0, f"{name}: no launch with instance rows"
+            kern[-1]["instance_rows"] = {
+                "launches": n_inst, "timed_case": tc, "ms": ti["ms"],
+                "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
+                "bound_by": ti["bound_by"], "lanes": ti["lanes"]}
         if name in counts:
             kern[-1]["counts"] = counts[name]
     # K1's fourth mode computes the TPU kernel's own Moeller-Trumbore

@@ -148,6 +148,9 @@ def launch(fn, src, inp, counts=None):
         argv = [ptr["cbounds"], ptr["ctable"], c, w, int(a["cluster_tris"]),
                 *ray,
                 n, int(inp["any_hit"]), *res]
+        if len(fn.argtypes) == len(argv) + 3:
+            # a tree whose K4 takes instance rows: a flag after any_hit
+            argv.insert(12, int(bool(a.get("has_instances", False))))
     else:
         argv = [ptr["sc_bounds"], ptr["cbounds"], ptr["ctable"],
                 a["sc_bounds"].shape[0], c, w, int(a["cluster_tris"]),

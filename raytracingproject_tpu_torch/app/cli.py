@@ -12,6 +12,10 @@
       --chunk 32 --device cuda
   python -m raytracingproject_tpu_torch example:textured_instanced \\
       --chunk 32 --device cuda
+  python -m raytracingproject_tpu_torch example:instanced_grid6 \\
+      --chunk 32 --device cuda
+  python -m raytracingproject_tpu_torch \\
+      example:instanced_grid5_nlat15[:fused] --chunk 32 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
@@ -38,6 +42,13 @@ example:textured_instanced is the textured_instanced configuration
 spheres on a checkered ground under a distant sun and a sky, 8,450 prims
 compiled flattened, the BVH built by the port's C++ builder; K2 for the
 closest hit, K3 for the shadow test).
+example:instanced_grid6 is instanced_scene(grid=6) at textured_instanced's
+256x256, 64 spp: 36 spheres, 19,010 flat prims, over the flatten limit,
+so the sphere stays instanced in a single-level table of 577 clusters x
+38 triangles with instance rows (K4 for the closest hit, K3 for the
+shadow test). example:instanced_grid5_nlat15 is instanced_scene(grid=5,
+nlat=15) alike (25 spheres of 672 triangles, 401 clusters x 48: K2 and
+K3); with :fused it renders in fused-NEE mode (examples.FUSED_NEE: K7).
 """
 
 from __future__ import annotations
@@ -59,7 +70,9 @@ def build_parser():
                    "'example:volume_sss[:dense]' | "
                    "'example:big_instanced[:onehot2]' | "
                    "'example:dof_motion' | "
-                   "'example:textured_instanced'")
+                   "'example:textured_instanced' | "
+                   "'example:instanced_grid6' | "
+                   "'example:instanced_grid5_nlat15[:fused]'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -88,13 +101,21 @@ def load_scene(spec):
         return examples.dof_motion_scene(256, 256, spp=64), {}
     if parts == ["example", "textured_instanced"]:
         return examples.instanced_scene(256, 256, spp=64), {}
+    if parts == ["example", "instanced_grid6"]:
+        return examples.instanced_scene(256, 256, spp=64, grid=6), {}
+    if parts[:2] == ["example", "instanced_grid5_nlat15"] \
+            and parts[2:] in ([], ["fused"]):
+        return (examples.instanced_scene(256, 256, spp=64, grid=5, nlat=15),
+                examples.FUSED_NEE if parts[2:] else {})
     if parts == ["example", "cornell", "glossy", "fused"]:
         return examples.cornell_box(spheres="glossy"), examples.GLOSSY_FUSED
     if parts[:2] != ["example", "cornell"] or len(parts) > 3:
         raise SystemExit(f"unknown scene '{spec}' (try example:cornell, "
                          "example:cornell:glossy[:fused], "
                          "example:volume_sss, example:big_instanced, "
-                         "example:dof_motion or example:textured_instanced)")
+                         "example:dof_motion, example:textured_instanced, "
+                         "example:instanced_grid6 or "
+                         "example:instanced_grid5_nlat15[:fused])")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})
 

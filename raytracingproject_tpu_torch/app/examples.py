@@ -12,7 +12,8 @@ six-bladed lens by a moving camera, rendered with adaptive sampling) and
 (with grid=8 the big_instanced configuration: 64 instances of one
 image-textured sphere on a checkered ground plane under a distant sun and
 a constant sky; at its default grid=4 the textured_instanced
-configuration, 16 of them compiled flattened). Variants that need
+configuration, 16 of them compiled flattened; at grid=6, and at grid=5
+with nlat=15, instanced with single-level tables). Variants that need
 unported features (glass spheres, an area lamp) raise
 NotImplementedError.
 
@@ -22,8 +23,9 @@ benchmark pins for volume_sss, the tile-shared cluster walk (K4) and the
 occlusion walk (K3); without them its 1,008 prims select the dense sweep
 (K1), the host compile's own choice. BIG_INSTANCED_ONEHOT2 opts the
 two-level scene into the per-lane inner walk (K6) in place of K5.
-GLOSSY_FUSED opts the glossy Cornell box into fused-NEE mode: one union
-walk (K7) per bounce answers the shadow test and the next closest hit.
+FUSED_NEE opts a scene into fused-NEE mode: one union walk (K7) per
+bounce answers the shadow test and the next closest hit; GLOSSY_FUSED is
+it for the glossy Cornell box.
 """
 
 from __future__ import annotations
@@ -184,7 +186,8 @@ def sss_shader(name, color=(0.9, 0.3, 0.2), radius=(10.0, 5.0, 3.0),
 VOLUME_SSS_DISPATCH = {"use_brute": False, "pallas_clusters": True,
                        "pallas_onehot": False, "pallas_occlusion": True}
 BIG_INSTANCED_ONEHOT2 = {"pallas_onehot2": True}
-GLOSSY_FUSED = {"fused_nee": True}
+FUSED_NEE = {"fused_nee": True}
+GLOSSY_FUSED = FUSED_NEE
 
 
 def volume_sss_scene(width=256, height=256, spp=32, density=0.004):
@@ -239,7 +242,11 @@ def instanced_scene(width=256, height=256, spp=32, grid=4, nlat=12,
     two-level cluster tables, K5 (or K6). grid=4, the textured_instanced
     configuration, compiles flattened (8,450 static prims built by the
     C++ builder, 385 clusters x 30 triangles: K2 and K3); so does grid=5
-    (13,202 prims, 599 clusters x 32: K4 and K3)."""
+    (13,202 prims, 599 clusters x 32: K4 and K3). grid=6 (19,010 flat
+    prims) stays instanced with a single-level table of 577 clusters x 38
+    triangles with instance rows (K4 and K3), and so does grid=5 with
+    nlat=15 (16,802 flat prims; 401 clusters x 48: K2 and K3, K7 in
+    fused-NEE mode)."""
     scene = Scene()
     scene.camera.set("matrix", tfm.look_at((14, -18, 10), (0, 0, 1),
                                            (0, 0, 1)))

@@ -3,7 +3,8 @@
     python -m raytracingproject_tpu_torch.app.profile_render \\
         [--scene glossy|glossy_fused|volume_sss|big_instanced|cornell|
                  volume_sss_dense|big_instanced_onehot2|dof_motion|
-                 textured_instanced]
+                 textured_instanced|instanced_grid6|instanced_grid5_nlat15|
+                 instanced_grid5_nlat15_fused]
         [--device cuda]
         [--out profile.json]
 
@@ -27,7 +28,11 @@ form; `dof_motion` is example:dof_motion at 256x256 (lens and motion camera
 rays on the glossy box) through K2 and K3, chunk by chunk as its fixed
 render runs; `textured_instanced` is example:textured_instanced at 256x256
 (instanced_scene at grid=4, compiled flattened: 385 clusters x 30
-triangles) through K2 and K3.
+triangles) through K2 and K3; `instanced_grid6` is example:instanced_grid6
+at 256x256 (577 clusters x 38 triangles with instance rows) through K4
+and K3, `instanced_grid5_nlat15` example:instanced_grid5_nlat15 (401 x
+48 with instance rows) through K2 and K3, `instanced_grid5_nlat15_fused`
+the same in fused-NEE mode through K7.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
@@ -85,6 +90,14 @@ SCENES = {
     "textured_instanced": ("example:textured_instanced", 256,
                            "cluster_walk", "cluster_walk_kernel", 1,
                            K3_KERNEL, 0),
+    "instanced_grid6": ("example:instanced_grid6", 256, "tile_walk",
+                        "tile_walk_kernel", 1, K3_KERNEL, 0),
+    "instanced_grid5_nlat15": ("example:instanced_grid5_nlat15", 256,
+                               "cluster_walk", "cluster_walk_kernel", 1,
+                               K3_KERNEL, 0),
+    "instanced_grid5_nlat15_fused": ("example:instanced_grid5_nlat15:fused",
+                                     256, "dual_walk", "dual_walk_kernel", 1,
+                                     None, 1),
 }
 
 

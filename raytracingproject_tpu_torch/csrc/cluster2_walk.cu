@@ -107,9 +107,7 @@ __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
     auto sc_entry_of = [&](int s) {
         return slab_entry(ssc + 8 * s, ox, oy, oz, ix, iy, iz, tmin, tmax);
     };
-    // the w2o bits the lane's shear basis w was last built from
-    unsigned int wm[12];
-    bool have_wm = false;
+    W2oCache wc;  // the w2o bits w was last built from
 
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
     int bp = -1, bo = -1;
@@ -156,30 +154,9 @@ __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
             if (COUNT) ++fetched;
             if (centry[g * TILE + lane] < GATE()) {
                 if (COUNT) ++rows;
-                if (instances) {
-                    bool same = have_wm;
-#pragma unroll
-                    for (int k = 0; k < 12; ++k)
-                        same = same && __float_as_uint(row[k]) == wm[k];
-                    if (!same) {
-                        const float* m = row;
-                        const float oxx =
-                            m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-                        const float oyy =
-                            m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-                        const float ozz =
-                            m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-                        const float dxx = m[0] * dx + m[1] * dy + m[2] * dz;
-                        const float dyy = m[4] * dx + m[5] * dy + m[6] * dz;
-                        const float dzz = m[8] * dx + m[9] * dy + m[10] * dz;
-                        w = wt_setup(oxx, oyy, ozz, dxx, dyy, dzz);
-#pragma unroll
-                        for (int k = 0; k < 12; ++k)
-                            wm[k] = __float_as_uint(row[k]);
-                        have_wm = true;
-                        if (COUNT) ++xforms;
-                    }
-                }
+                if (instances &&
+                    w2o_update(wc, row, ox, oy, oz, dx, dy, dz, &w) && COUNT)
+                    ++xforms;
                 for (int k = 0; k < ct; ++k) {
                     const float pid = row[pbase + k];
                     if (!(pid >= 0.0f)) continue;

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_onehot.py:969
 // intersect_clusters_onehot / _onehot_kernel (:145). Same contract as the
-// plain walk ops/cluster_intersect.py intersect_clusters (static,
-// single-level cluster tables, C <= 512; no instance or motion rows).
+// plain walk ops/cluster_intersect.py intersect_clusters (single-level
+// cluster tables, C <= 512, with or without instance rows; no motion
+// rows).
 //
 // What bounds it on the H100: per-lane latency, not bytes. A lane's visits
 // are serial, and each reads one 193-float row (at 15 triangles) that
@@ -36,6 +37,14 @@
 // so t, u, v, prim and object are the same to the bit; box tests fall
 // from (visits + 1) x C to C x passes, about C x ceil(visits / queue).
 //
+// Instance rows (INST): a row's first 12 floats are its instance's
+// world->object matrix. Boxes are world boxes, so the keys, the cull and
+// the visit order do not change. Before a popped row's tests the lane
+// transforms its world ray by the matrix and rebuilds its shear basis
+// (watertight.cuh w2o_setup), unless the 12 floats are bit for bit the
+// ones it used last (an instance's clusters share them); t stays in world
+// units.
+//
 // The counting variant (COUNT) also writes per lane the rows it tested and
 // the boxes it tested, into counts[2 * lane].
 //
@@ -44,14 +53,15 @@
 // exact, and such keys are never retired by a non-negative key's cull.
 //
 // Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 72 registers, no
-// spills, in both variants; chip_smoke.py prints the build log.
+// spills, in both variants; with instance rows 88 and 89; chip_smoke.py
+// prints the build log.
 #include "watertight.cuh"
 
 // Queue length: the counts (PERF.md) give p99 4 visits a lane on glossy's
 // render input, so one pass serves nearly every lane.
 #define K2_QUEUE 8
 
-template <int Q, bool COUNT>
+template <int Q, bool COUNT, bool INST>
 __global__ void cluster_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ o,
@@ -70,7 +80,8 @@ __global__ void cluster_walk_kernel(
     const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
     const float tmin = tmin_a[i], tmax = tmax_a[i];
     const int vis = vis_a[i];
-    const WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
+    WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
+    W2oCache wc;  // the w2o bits w was last built from (INST)
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
 
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
@@ -117,6 +128,12 @@ __global__ void cluster_walk_kernel(
             last = key;
             const float* row = ctable + (size_t)(key & RT_KEY_ID_MASK) * W;
             if (COUNT) ++rows;
+            if (INST) {
+                float m[12];
+#pragma unroll
+                for (int k = 0; k < 12; ++k) m[k] = __ldg(row + k);
+                w2o_update(wc, m, ox, oy, oz, dx, dy, dz, &w);
+            }
             for (int k = 0; k < ct; ++k) {
                 const float pid = __ldg(row + pbase + k);
                 if (!(pid >= 0.0f)) continue;
@@ -149,26 +166,33 @@ __global__ void cluster_walk_kernel(
     }
 }
 
+template <bool COUNT, bool INST>
+static void launch(int grid, int block, size_t smem, cudaStream_t stream,
+                   const float* cbounds, const float* ctable, int C, int W,
+                   int ct, const float* o, const float* d, const float* tmin,
+                   const float* tmax, const int* vis, int n, int any_hit,
+                   float* t, int* prim, float* u, float* v, int* obj,
+                   int* counts) {
+    cluster_walk_kernel<K2_QUEUE, COUNT, INST><<<grid, block, smem, stream>>>(
+        cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
+        u, v, obj, counts);
+}
+
 extern "C" int rt_cluster_walk(const float* cbounds, const float* ctable,
                                int C, int W, int ct, const float* o,
                                const float* d, const float* tmin,
                                const float* tmax, const int* vis, int n,
-                               int any_hit, float* t, int* prim, float* u,
-                               float* v, int* obj, int* counts,
-                               void* stream) {
+                               int any_hit, int instances, float* t,
+                               int* prim, float* u, float* v, int* obj,
+                               int* counts, void* stream) {
     if (n <= 0) return 0;
     const int block = 128;
     const int grid = (n + block - 1) / block;
     const size_t smem = (size_t)C * 6 * sizeof(float);
-    if (counts)
-        cluster_walk_kernel<K2_QUEUE, true>
-            <<<grid, block, smem, (cudaStream_t)stream>>>(
-                cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit,
-                t, prim, u, v, obj, counts);
-    else
-        cluster_walk_kernel<K2_QUEUE, false>
-            <<<grid, block, smem, (cudaStream_t)stream>>>(
-                cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit,
-                t, prim, u, v, obj, counts);
+    auto* fn = counts
+                   ? (instances ? launch<true, true> : launch<true, false>)
+                   : (instances ? launch<false, true> : launch<false, false>);
+    fn(grid, block, smem, (cudaStream_t)stream, cbounds, ctable, C, W, ct, o,
+       d, tmin, tmax, vis, n, any_hit, t, prim, u, v, obj, counts);
     return (int)cudaGetLastError();
 }

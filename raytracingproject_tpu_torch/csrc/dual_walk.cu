@@ -5,9 +5,9 @@
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_onehot.py
 // intersect_clusters_onehot_dual / _onehot_dual_kernel. Same contract as
 // the plain version ops/cluster_intersect.py intersect_clusters_dual (the
-// closest walk on one ray and the any-hit walk on the other; static,
-// single-level tables, C <= 512; no instance or motion rows). A window
-// with tmax <= tmin holds no hit and disables that ray of the lane.
+// closest walk on one ray and the any-hit walk on the other; single-level
+// tables, C <= 512, with or without instance rows; no motion rows). A
+// window with tmax <= tmin holds no hit and disables that ray of the lane.
 //
 // What bounds it on the H100: per-lane latency, as K2. A lane's visits are
 // serial and each reads one row from the L2-resident table that depends
@@ -37,12 +37,23 @@
 // both rays on every visit, with a visited bit per cluster and lane in
 // shared memory) to C per ray and pass.
 //
+// Instance rows (INST): a row's first 12 floats are its instance's
+// world->object matrix. Boxes are world boxes, so the keys, the queues and
+// the visit order do not change. A row that both heads name is still read
+// once: the lane reads its matrix and takes each ray that tests the row to
+// object space by it, rebuilding that ray's shear basis (watertight.cuh
+// w2o_setup; the direction is not renormalised, so t stays in world
+// units). Each ray is transformed at every row it tests: the bit-for-bit
+// cache of the last matrix that K2-K6 keep (watertight.cuh W2oCache)
+// would hold two matrices' 24 words here, on top of 124 registers.
+//
 // The counting variant (COUNT) also writes per lane the rows it read, the
 // rows read once for both rays, the passes made and the boxes tested,
 // into counts[4 * lane].
 //
 // Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 116 and 121 in the
-// two variants, no spills; chip_smoke.py prints the build log.
+// two variants, no spills; with instance rows 124 and 128; chip_smoke.py
+// prints the build log.
 #include "watertight.cuh"
 
 #define DUAL_BLOCK 128
@@ -51,7 +62,7 @@
 #define K7_QC 8
 #define K7_QA 8
 
-template <int QC, int QA, bool COUNT>
+template <int QC, int QA, bool COUNT, bool INST>
 __global__ void dual_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ oc,
@@ -76,8 +87,8 @@ __global__ void dual_walk_kernel(
     const float tminc = tminc_a[i], tmaxc = tmaxc_a[i];
     const float tmina = tmina_a[i], tmaxa = tmaxa_a[i];
     const int visc = visc_a[i], visa = visa_a[i];
-    const WtRay wc = wt_setup(cox, coy, coz, cdx, cdy, cdz);
-    const WtRay wa = wt_setup(aox, aoy, aoz, adx, ady, adz);
+    WtRay wc = wt_setup(cox, coy, coz, cdx, cdy, cdz);
+    WtRay wa = wt_setup(aox, aoy, aoz, adx, ady, adz);
     const float cix = safe_inv(cdx), ciy = safe_inv(cdy), ciz = safe_inv(cdz);
     const float aix = safe_inv(adx), aiy = safe_inv(ady), aiz = safe_inv(adz);
 
@@ -160,6 +171,14 @@ __global__ void dual_walk_kernel(
                 if (do_c && do_a) ++shared_rows;
             }
             const float* row = ctable + (size_t)cid * W;
+            if (INST) {
+                float m[12];
+#pragma unroll
+                for (int k = 0; k < 12; ++k) m[k] = __ldg(row + k);
+                if (do_c) wc = w2o_setup(m, cox, coy, coz, cdx, cdy, cdz);
+                if (do_a && !blocked)
+                    wa = w2o_setup(m, aox, aoy, aoz, adx, ady, adz);
+            }
             for (int k = 0; k < ct; ++k) {
                 const float pid = __ldg(row + pbase + k);
                 if (!(pid >= 0.0f)) continue;
@@ -208,7 +227,7 @@ __global__ void dual_walk_kernel(
     }
 }
 
-template <bool COUNT>
+template <bool COUNT, bool INST>
 static void launch(int grid, size_t smem, cudaStream_t stream,
                    const float* cbounds, const float* ctable, int C, int W,
                    int ct, const float* oc, const float* dc,
@@ -217,7 +236,8 @@ static void launch(int grid, size_t smem, cudaStream_t stream,
                    const float* tmaxa, const int* visa, int n, float* t,
                    int* prim, float* u, float* v, int* obj, bool* blocked,
                    int* counts) {
-    dual_walk_kernel<K7_QC, K7_QA, COUNT><<<grid, DUAL_BLOCK, smem, stream>>>(
+    dual_walk_kernel<K7_QC, K7_QA, COUNT, INST>
+        <<<grid, DUAL_BLOCK, smem, stream>>>(
         cbounds, ctable, C, W, ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina,
         tmaxa, visa, n, t, prim, u, v, obj, blocked, counts);
 }
@@ -227,19 +247,18 @@ extern "C" int rt_dual_walk(const float* cbounds, const float* ctable, int C,
                             const float* tminc, const float* tmaxc,
                             const int* visc, const float* oa, const float* da,
                             const float* tmina, const float* tmaxa,
-                            const int* visa, int n, float* t, int* prim,
-                            float* u, float* v, int* obj, bool* blocked,
-                            int* counts, void* stream) {
+                            const int* visa, int n, int instances,
+                            float* t, int* prim, float* u, float* v,
+                            int* obj, bool* blocked, int* counts,
+                            void* stream) {
     if (n <= 0) return 0;
     const int grid = (n + DUAL_BLOCK - 1) / DUAL_BLOCK;
     const size_t smem = (size_t)C * 6 * sizeof(float);
-    if (counts)
-        launch<true>(grid, smem, (cudaStream_t)stream, cbounds, ctable, C, W,
-                     ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina, tmaxa,
-                     visa, n, t, prim, u, v, obj, blocked, counts);
-    else
-        launch<false>(grid, smem, (cudaStream_t)stream, cbounds, ctable, C, W,
-                      ct, oc, dc, tminc, tmaxc, visc, oa, da, tmina, tmaxa,
-                      visa, n, t, prim, u, v, obj, blocked, counts);
+    auto* fn = counts
+                   ? (instances ? launch<true, true> : launch<true, false>)
+                   : (instances ? launch<false, true> : launch<false, false>);
+    fn(grid, smem, (cudaStream_t)stream, cbounds, ctable, C, W, ct, oc, dc,
+       tminc, tmaxc, visc, oa, da, tmina, tmaxa, visa, n, t, prim, u, v, obj,
+       blocked, counts);
     return (int)cudaGetLastError();
 }

@@ -6,8 +6,8 @@
 // masked minima over camera-visible hits inside [tmin, tmax_closest]
 // (volume-boundary prims -> t_boundary, the rest -> t_other) and an
 // any-hit OR under vis_any inside [tmin, tmax_any]. Single-level tables of
-// up to 640 clusters (the JAX package's single-level cap); no instance or
-// motion rows.
+// up to 640 clusters (the JAX package's single-level cap), with or without
+// instance rows; no motion rows.
 //
 // What bounds it on the H100: latency of the row reads, not bytes or
 // operations. The tables stay in L2 (138 KB for glossy); a lane tests
@@ -51,11 +51,25 @@
 // and blocked are those of the plain version to the bit, in the surface
 // and the dual form.
 //
+// Instance rows (INST): a row's first 12 floats are its instance's
+// world->object matrix (row-major 3x4). Boxes are world boxes, so the
+// gate, the ballot and the staging do not change. Once the row is staged,
+// each needing lane transforms its own world ray by the row's matrix
+// (m[0]*ox + m[1]*oy + m[2]*oz + m[3], left to right as in the plain
+// version; the direction is not renormalised, so t stays in world units)
+// and rewrites its slot of the warp's ray table with the shear basis of
+// that ray, unless the matrix's 12 floats are bit for bit the ones the
+// slot holds (an instance's clusters are neighbours in the table). The
+// pair rounds then read the slot as without instances. A slot is read
+// only by the pairs of its own lane, and only in rounds of a row that
+// lane needs, so a stale slot is never read.
+//
 // The counting variant (COUNT) also writes per lane the rows it tested,
 // the boxes it tested and the rows its warp staged, into counts[3 * lane].
 //
 // Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 64 registers, no
-// spills, in both variants; chip_smoke.py prints the build log.
+// spills, in both variants; with instance rows 80; chip_smoke.py prints
+// the build log.
 #include "watertight.cuh"
 
 #define K3_WARPS 4  // warps per block
@@ -78,6 +92,16 @@ static __device__ __forceinline__ float occ_gate(float t_b, float t_o,
 #define HIT_BOUNDARY 1
 #define HIT_OTHER 2
 #define HIT_ANY 4
+// A lane's slot of the warp's ray table: the shear basis and the
+// degenerate flag (floats 0-12; 13-15 hold the lane's window)
+static __device__ __forceinline__ void store_ray(float* my, const WtRay& w) {
+    my[0] = w.rx0; my[1] = w.rx1; my[2] = w.rx2;
+    my[3] = w.ry0; my[4] = w.ry1; my[5] = w.ry2;
+    my[6] = w.rz0; my[7] = w.rz1; my[8] = w.rz2;
+    my[9] = w.rxo; my[10] = w.ryo; my[11] = w.rzo;
+    my[12] = w.degenerate ? 1.0f : 0.0f;
+}
+
 static __host__ __device__ __forceinline__ int stage_floats(int ct) {
     return 12 * ct;
 }
@@ -85,7 +109,7 @@ static __host__ __device__ __forceinline__ int warp_floats(int ct) {
     return stage_floats(ct) + 32 * RAY_STRIDE + 3 * 32;
 }
 
-template <bool COUNT>
+template <bool COUNT, bool INST>
 __global__ void occlusion_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     const float* __restrict__ cboundary, int C, int W, int ct,
@@ -111,16 +135,10 @@ __global__ void occlusion_walk_kernel(
     const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
     const float tmin = tmin_a[r], tmaxc = tmaxc_a[r], tmaxa = tmaxa_a[r];
     const float need_t = fmaxf(tmaxc, tmaxa);
-    {
-        const WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
-        float* my = rays + lane * RAY_STRIDE;
-        my[0] = w.rx0; my[1] = w.rx1; my[2] = w.rx2;
-        my[3] = w.ry0; my[4] = w.ry1; my[5] = w.ry2;
-        my[6] = w.rz0; my[7] = w.rz1; my[8] = w.rz2;
-        my[9] = w.rxo; my[10] = w.ryo; my[11] = w.rzo;
-        my[12] = w.degenerate ? 1.0f : 0.0f;
-        my[13] = tmin; my[14] = tmaxc; my[15] = tmaxa;
-    }
+    float* my = rays + lane * RAY_STRIDE;
+    if (!INST) store_ray(my, wt_setup(ox, oy, oz, dx, dy, dz));
+    my[13] = tmin; my[14] = tmaxc; my[15] = tmaxa;
+    W2oCache wc;  // the w2o bits the lane's slot was last built from (INST)
     __syncthreads();  // the bounds and the warp's rays are in place
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
 
@@ -157,6 +175,14 @@ __global__ void occlusion_walk_kernel(
         }
         const int rank = __popc(m & ((1u << lane) - 1u));
         if (need) lane_of[rank] = lane;
+        if (INST && need) {
+            float w2o[12];
+#pragma unroll
+            for (int k = 0; k < 12; ++k) w2o[k] = __ldg(row + k);
+            WtRay w;
+            if (w2o_update(wc, w2o, ox, oy, oz, dx, dy, dz, &w))
+                store_ray(my, w);
+        }
         __syncwarp();
         // the (needing lane, triangle) pairs, 32 a round
         const int pairs = __popc(m) * ct;
@@ -218,27 +244,37 @@ __global__ void occlusion_walk_kernel(
     }
 }
 
+template <bool COUNT, bool INST>
+static void launch(int grid, int block, size_t smem, cudaStream_t stream,
+                   const float* cbounds, const float* ctable,
+                   const float* cboundary, int C, int W, int ct,
+                   const float* o, const float* d, const float* tmin,
+                   const float* tmaxc, const float* tmaxa, int n,
+                   int vis_closest, int vis_any, float* tb, float* to,
+                   bool* blocked, int* counts) {
+    occlusion_walk_kernel<COUNT, INST><<<grid, block, smem, stream>>>(
+        cbounds, ctable, cboundary, C, W, ct, o, d, tmin, tmaxc, tmaxa, n,
+        vis_closest, vis_any, tb, to, blocked, counts);
+}
+
 extern "C" int rt_occlusion_walk(const float* cbounds, const float* ctable,
                                  const float* cboundary, int C, int W, int ct,
                                  const float* o, const float* d,
                                  const float* tmin, const float* tmaxc,
                                  const float* tmaxa, int n, int vis_closest,
-                                 int vis_any, float* tb, float* to,
-                                 bool* blocked, int* counts, void* stream) {
+                                 int vis_any, int instances, float* tb,
+                                 float* to, bool* blocked, int* counts,
+                                 void* stream) {
     if (n <= 0) return 0;
     const int block = K3_WARPS * 32;
     const int grid = (n + block - 1) / block;
     const size_t smem =
         ((size_t)C * 6 + (size_t)K3_WARPS * warp_floats(ct)) * sizeof(float);
-    if (counts)
-        occlusion_walk_kernel<true>
-            <<<grid, block, smem, (cudaStream_t)stream>>>(
-                cbounds, ctable, cboundary, C, W, ct, o, d, tmin, tmaxc,
-                tmaxa, n, vis_closest, vis_any, tb, to, blocked, counts);
-    else
-        occlusion_walk_kernel<false>
-            <<<grid, block, smem, (cudaStream_t)stream>>>(
-                cbounds, ctable, cboundary, C, W, ct, o, d, tmin, tmaxc,
-                tmaxa, n, vis_closest, vis_any, tb, to, blocked, counts);
+    auto* fn = counts
+                   ? (instances ? launch<true, true> : launch<true, false>)
+                   : (instances ? launch<false, true> : launch<false, false>);
+    fn(grid, block, smem, (cudaStream_t)stream, cbounds, ctable, cboundary, C,
+       W, ct, o, d, tmin, tmaxc, tmaxa, n, vis_closest, vis_any, tb, to,
+       blocked, counts);
     return (int)cudaGetLastError();
 }

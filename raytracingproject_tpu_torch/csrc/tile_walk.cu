@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_cluster.py
 // intersect_clusters_pallas / _cluster_kernel. Same contract as the plain
-// walk ops/cluster_intersect.py intersect_clusters (static, single-level
-// cluster tables with C <= 640, the JAX package's single-level cap; no
-// instance or motion rows).
+// walk ops/cluster_intersect.py intersect_clusters (single-level cluster
+// tables with C <= 640, the JAX package's single-level cap, with or
+// without instance rows; no motion rows).
 //
 // What the TPU kernel does: a tile of 1,024 rays keeps a (C, tile) table
 // of entry distances in VMEM; each step it takes the cluster whose masked
@@ -42,6 +42,14 @@
 // one lane inserts, so a lane that needs a second pass holds its warp: the
 // queue is long enough that none does on the render input.
 //
+// Instance rows (INST): a row's first 12 floats are its instance's
+// world->object matrix. Boxes are world boxes, so the queues, the warp
+// minimum and the retired bitmask do not change. A lane that tests the
+// staged row first transforms its world ray by the matrix and rebuilds its
+// shear basis (watertight.cuh w2o_setup), unless the 12 floats are bit for
+// bit the ones it used last (an instance's clusters share them); t stays
+// in world units.
+//
 // The counting variant (COUNT) writes per lane the steps of its warp (rows
 // fetched), the rows it tested, its box tests and its box passes, into
 // counts[4 * lane]; ops/tile_walk.py tile_queue_order computes the same
@@ -60,12 +68,13 @@
 #define K4_MAX_WORDS 20  // retired bitmask words: C <= 640
 // Queue length (PERF.md section 6, compare_walks.py): at 12 no lane of
 // volume_sss's render input makes a second pass, and 12 was the fastest of
-// 4, 8, 12 and 16 there (at 80 registers).
+// 4, 8, 12 and 16 there (at 80 registers; 123 with instance rows, no
+// spills).
 #ifndef K4_QUEUE
 #define K4_QUEUE 12
 #endif
 
-template <int Q, bool COUNT>
+template <int Q, bool COUNT, bool INST>
 __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ o,
@@ -94,7 +103,8 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     const float tmin = live ? tmin_a[i] : 0.0f;
     const float tmax = live ? tmax_a[i] : -1.0f;
     const int vis = live ? vis_a[i] : 0;
-    const WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
+    WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
+    W2oCache wc;  // the w2o bits w was last built from (INST)
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     auto entry_of = [&](int c) {
         return slab_entry(sb + 6 * c, ox, oy, oz, ix, iy, iz, tmin, tmax);
@@ -125,6 +135,7 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
         }
         if (live && entry_of(mc) < gate) {
             if (COUNT) ++rows;
+            if (INST) w2o_update(wc, row, ox, oy, oz, dx, dy, dz, &w);
             for (int k = 0; k < ct; ++k) {
                 const float pid = row[pbase + k];
                 if (!(pid >= 0.0f)) continue;
@@ -160,7 +171,7 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     }
 }
 
-template <bool COUNT>
+template <bool COUNT, bool INST>
 static int launch(const float* cbounds, const float* ctable, int C, int W,
                   int ct, const float* o, const float* d, const float* tmin,
                   const float* tmax, const int* vis, int n, int any_hit,
@@ -170,12 +181,12 @@ static int launch(const float* cbounds, const float* ctable, int C, int W,
     if (smem + sizeof(unsigned int) * K4_WARPS * K4_MAX_WORDS > 227 * 1024)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        tile_walk_kernel<K4_QUEUE, COUNT>,
+        tile_walk_kernel<K4_QUEUE, COUNT, INST>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int block = K4_WARPS * TILE;
     const int grid = (n + block - 1) / block;
-    tile_walk_kernel<K4_QUEUE, COUNT><<<grid, block, smem, stream>>>(
+    tile_walk_kernel<K4_QUEUE, COUNT, INST><<<grid, block, smem, stream>>>(
         cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
         u, v, obj, counts);
     return (int)cudaGetLastError();
@@ -184,16 +195,14 @@ static int launch(const float* cbounds, const float* ctable, int C, int W,
 extern "C" int rt_tile_walk(const float* cbounds, const float* ctable, int C,
                             int W, int ct, const float* o, const float* d,
                             const float* tmin, const float* tmax,
-                            const int* vis, int n, int any_hit, float* t,
-                            int* prim, float* u, float* v, int* obj,
-                            int* counts, void* stream) {
+                            const int* vis, int n, int any_hit,
+                            int instances, float* t, int* prim, float* u,
+                            float* v, int* obj, int* counts, void* stream) {
     if (n <= 0) return 0;
     if (C > K4_MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
-    if (counts)
-        return launch<true>(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis,
-                            n, any_hit, t, prim, u, v, obj, counts,
-                            (cudaStream_t)stream);
-    return launch<false>(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n,
-                         any_hit, t, prim, u, v, obj, counts,
-                         (cudaStream_t)stream);
+    auto* fn = counts
+                   ? (instances ? launch<true, true> : launch<true, false>)
+                   : (instances ? launch<false, true> : launch<false, false>);
+    return fn(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t,
+              prim, u, v, obj, counts, (cudaStream_t)stream);
 }

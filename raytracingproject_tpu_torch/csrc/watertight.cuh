@@ -54,6 +54,51 @@ static __device__ __forceinline__ WtRay wt_setup(float ox, float oy, float oz,
     return w;
 }
 
+// The shear basis of a world ray taken to an instance row's object space:
+// m is the row's world->object matrix (row-major 3x4), applied as
+// m[0]*ox + m[1]*oy + m[2]*oz + m[3] left to right (the plain version's
+// order, ops/cluster_intersect.py _row_w2o_ray); the direction is not
+// renormalised, so a hit's t stays in world units.
+static __device__ __forceinline__ WtRay w2o_setup(const float* m, float ox,
+                                                  float oy, float oz,
+                                                  float dx, float dy,
+                                                  float dz) {
+    const float oxx = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+    const float oyy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+    const float ozz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+    const float dxx = m[0] * dx + m[1] * dy + m[2] * dz;
+    const float dyy = m[4] * dx + m[5] * dy + m[6] * dz;
+    const float dzz = m[8] * dx + m[9] * dy + m[10] * dz;
+    return wt_setup(oxx, oyy, ozz, dxx, dyy, dzz);
+}
+
+// The bits of the w2o matrix a lane's shear basis was last built from:
+// the clusters of one instance share their matrix, so a walk rebuilds the
+// basis only where the row's matrix changes.
+struct W2oCache {
+    unsigned int bits[12];
+    bool valid = false;
+};
+
+// Takes w to the object space of the row whose w2o matrix is m (12
+// floats), unless c says w was built from the same bits; returns whether
+// it rebuilt w.
+static __device__ __forceinline__ bool w2o_update(W2oCache& c, const float* m,
+                                                  float ox, float oy, float oz,
+                                                  float dx, float dy, float dz,
+                                                  WtRay* w) {
+    bool same = c.valid;
+#pragma unroll
+    for (int k = 0; k < 12; ++k)
+        same = same && __float_as_uint(m[k]) == c.bits[k];
+    if (same) return false;
+    *w = w2o_setup(m, ox, oy, oz, dx, dy, dz);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) c.bits[k] = __float_as_uint(m[k]);
+    c.valid = true;
+    return true;
+}
+
 static __device__ __forceinline__ void wt_shear(const WtRay& w, float vx,
                                                 float vy, float vz, float* x,
                                                 float* y, float* z) {

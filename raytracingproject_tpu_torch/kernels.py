@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # closest-hit walks: cbounds ctable C W ct o d tmin tmax vis n any_hit
-# t prim u v obj stream
-_WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+# instances t prim u v obj stream
+_WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
          _P, _P, _P, _P, _P, _P]
 # source -> {C entry point: argtypes}
 SIGNATURES = {
@@ -44,10 +44,10 @@ SIGNATURES = {
     # counts: (N, 2) int32 or null (the counting variant runs when given)
     "cluster_walk.cu": {"rt_cluster_walk": _WALK[:-1] + [_P, _P]},
     # cbounds ctable cboundary C W ct o d tmin tmaxc tmaxa n vis_c vis_a
-    # tb to blocked counts stream
+    # instances tb to blocked counts stream
     "occlusion_walk.cu": {"rt_occlusion_walk": [
-        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-        _P, _P]},
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P]},
     # K4 as K2: counts (N, 4) int32 or null before the stream
     "tile_walk.cu": {"rt_tile_walk": _WALK[:-1] + [_P, _P]},
     # sc_bounds cbounds ctable SC C W ct gmax o d tmin tmax vis n any_hit
@@ -60,9 +60,10 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P]},
     # cbounds ctable C W ct | o d tmin tmax vis of the closest ray | the
-    # same of the any-hit ray | n t prim u v obj blocked counts stream
+    # same of the any-hit ray | n instances t prim u v obj blocked counts
+    # stream
     "dual_walk.cu": {"rt_dual_walk": [
-        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P]},
     "dense_sweep.cu": {
         # tri_verts prim_object obj_vis P o d tmin tmax vis n t prim u v obj

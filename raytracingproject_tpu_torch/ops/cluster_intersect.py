@@ -205,7 +205,8 @@ def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
 
 
 def intersect_clusters_dual(cbounds, ctable, cluster_tris, o_c, d_c, tmin_c,
-                            tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a, vis_a):
+                            tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a, vis_a,
+                            has_instances=False):
     """The union walk's contract (JAX counterpart: ops/pallas_onehot.py
     intersect_clusters_onehot_dual), computed as the two single walks it
     stands for: per lane the closest hit of ray (o_c, d_c) inside
@@ -216,16 +217,20 @@ def intersect_clusters_dual(cbounds, ctable, cluster_tris, o_c, d_c, tmin_c,
     An empty window (tmax < tmin) disables that ray of the lane: the any
     ray is then never blocked, the closest ray misses. A miss returns
     t = min(tmax_c, RAY_TMAX) (so a disabled closest ray returns its own
-    negative tmax_c) and prim = object = -1."""
+    negative tmax_c) and prim = object = -1. With has_instances both
+    rays are transformed by each row's w2o."""
     hit = intersect_clusters(cbounds, ctable, cluster_tris, o_c, d_c,
-                             tmin_c, tmax_c, vis_c)
+                             tmin_c, tmax_c, vis_c,
+                             has_instances=has_instances)
     shadow = intersect_clusters(cbounds, ctable, cluster_tris, o_a, d_a,
-                                tmin_a, tmax_a, vis_a, shadow_any_hit=True)
+                                tmin_a, tmax_a, vis_a, shadow_any_hit=True,
+                                has_instances=has_instances)
     return hit, shadow["prim"] >= 0
 
 
 def occlusion_clusters(cbounds, ctable, cboundary, cluster_tris, o, d,
-                       tmin, tmax_closest, tmax_any, vis_closest, vis_any):
+                       tmin, tmax_closest, tmax_any, vis_closest, vis_any,
+                       has_instances=False):
     """Dual-reduction occlusion sweep: (t_boundary, t_other, blocked).
 
     t_boundary / t_other: RAY_TMAX-capped minima of hit t over
@@ -234,10 +239,13 @@ def occlusion_clusters(cbounds, ctable, cboundary, cluster_tris, o, d,
     [tmin, tmax_any]. cboundary (C, ct) 0/1 flags the boundary slots.
     The reductions are order free, so a lane may visit its clusters in
     any order; it skips a cluster whose entry is behind every window it
-    can still tighten (the JAX kernel's gate)."""
+    can still tighten (the JAX kernel's gate). With has_instances each
+    row's triangles are tested against the lane's ray transformed by that
+    row's w2o."""
     return _chunked(
         lambda *a: _occlusion_chunk(*a, vis_closest=vis_closest,
-                                    vis_any=vis_any),
+                                    vis_any=vis_any,
+                                    has_instances=has_instances),
         o.shape[0], (cbounds, ctable, cboundary, cluster_tris, o, d, tmin,
                      tmax_closest, tmax_any), {4, 5, 6, 7, 8})
 
@@ -249,7 +257,7 @@ def occlusion_gate(t_b, t_o, blocked, tmaxc, tmaxa):
 
 
 def _occlusion_chunk(cbounds, ctable, cboundary, ct, o, d, tmin, tmaxc,
-                     tmaxa, vis_closest, vis_any):
+                     tmaxa, vis_closest, vis_any, has_instances=False):
     n, c = o.shape[0], cbounds.shape[0]
     dev = o.device
     entry = entry_table(cbounds, o, d, tmin, torch.maximum(tmaxc, tmaxa))
@@ -267,6 +275,8 @@ def _occlusion_chunk(cbounds, ctable, cboundary, ct, o, d, tmin, tmaxc,
         if not bool(active.any()):
             break
         rows = ctable[cid]
+        if has_instances:
+            ws = _lane_ws(*_row_w2o_ray(rows, o, d))
         v0c, e1c, e2c = _row_tris(rows, ct)
         valid, t, _, _ = isect.wt_block(ws, v0c, e1c, e2c, tmin[:, None],
                                         RAY_TMAX)

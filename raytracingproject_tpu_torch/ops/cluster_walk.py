@@ -5,7 +5,10 @@ raytracingproject_tpu/ops/pallas_onehot.py intersect_clusters_onehot).
 ops/cluster_intersect.py `intersect_clusters`, which is its plain
 version. A CPU tensor takes the plain version; a CUDA tensor launches
 the hand-written kernel csrc/cluster_walk.cu or raises. `launches`
-counts kernel launches.
+counts kernel launches. With has_instances each row's first 12 floats
+are its instance's world-to-object matrix, and a lane's ray is taken to
+the row's object space before the row's triangle tests; motion rows
+raise.
 
 The packed visit key keeps a 9-bit cluster id, so the kernel takes at
 most MAX_CLUSTERS clusters; `fits(C)` states it, and the integrator sends
@@ -69,15 +72,15 @@ def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
     t, u, v (f32) and prim, object (int32), (N,) each; with counts=True
     (hit dict, (N, 2) int32 rows and boxes tested per lane)."""
     global launches
-    if has_instances or has_motion:
-        raise NotImplementedError(
-            "instance and motion cluster rows are not ported")
+    if has_motion:
+        raise NotImplementedError("motion cluster rows are not ported")
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
                                      tmin, tmax, visibility,
-                                     shadow_any_hit=shadow_any_hit)
+                                     shadow_any_hit=shadow_any_hit,
+                                     has_instances=bool(has_instances))
     n, c, w = check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin,
                               tmax, visibility)
     dev = o.device
@@ -92,8 +95,8 @@ def intersect_clusters_walk(cbounds, ctable, cluster_tris, o, d, tmin,
         cbounds.data_ptr(), ctable.data_ptr(), c, w, int(cluster_tris),
         o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
         visibility.data_ptr(), n, int(bool(shadow_any_hit)),
-        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        obj.data_ptr(), cnt.data_ptr() if counts else None,
+        int(bool(has_instances)), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+        v.data_ptr(), obj.data_ptr(), cnt.data_ptr() if counts else None,
         kernels.current_stream())
     kernels.check_rc("cluster_walk", rc)
     launches += 1

@@ -7,6 +7,9 @@ version: per lane the closest hit of one ray and the any-hit answer of
 another, over one pass through the single-level cluster table. A CPU
 tensor takes the plain version; a CUDA tensor launches the hand-written
 kernel csrc/dual_walk.cu or raises. `launches` counts kernel launches.
+With has_instances both rays are taken to a row's object space by the
+row's world-to-object matrix before its triangle tests; motion rows
+raise.
 With counts=True the counting variant runs and the call also returns
 (N, 4) int32 counts per lane: the cluster rows it read, the rows read once
 for both rays, the passes over the boxes and the boxes tested (CUDA
@@ -33,9 +36,8 @@ def intersect_clusters_dual_walk(cbounds, ctable, cluster_tris, o_c, d_c,
     counts=True also the (N, 4) int32 counts. An empty window (tmax <
     tmin) disables that ray of the lane."""
     global launches
-    if has_instances or has_motion:
-        raise NotImplementedError(
-            "instance and motion cluster rows are not ported")
+    if has_motion:
+        raise NotImplementedError("motion cluster rows are not ported")
     kernels.unsupported(
         cbounds.shape[0] <= cluster_walk.MAX_CLUSTERS,
         f"{cbounds.shape[0]} clusters: the union walk takes at most "
@@ -45,7 +47,8 @@ def intersect_clusters_dual_walk(cbounds, ctable, cluster_tris, o_c, d_c,
             raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters_dual(
             cbounds, ctable, cluster_tris, o_c, d_c, tmin_c, tmax_c, vis_c,
-            o_a, d_a, tmin_a, tmax_a, vis_a)
+            o_a, d_a, tmin_a, tmax_a, vis_a,
+            has_instances=bool(has_instances))
     n, c, w = cluster_walk.check_walk_args(
         cbounds, ctable, cluster_tris, o_c, d_c, tmin_c, tmax_c, vis_c)
     cluster_walk.check_walk_args(
@@ -64,7 +67,8 @@ def intersect_clusters_dual_walk(cbounds, ctable, cluster_tris, o_c, d_c,
         cbounds.data_ptr(), ctable.data_ptr(), c, w, int(cluster_tris),
         o_c.data_ptr(), d_c.data_ptr(), tmin_c.data_ptr(), tmax_c.data_ptr(),
         vis_c.data_ptr(), o_a.data_ptr(), d_a.data_ptr(), tmin_a.data_ptr(),
-        tmax_a.data_ptr(), vis_a.data_ptr(), n, t.data_ptr(),
+        tmax_a.data_ptr(), vis_a.data_ptr(), n, int(bool(has_instances)),
+        t.data_ptr(),
         prim.data_ptr(), u.data_ptr(), v.data_ptr(), obj.data_ptr(),
         blocked.data_ptr(), cnt.data_ptr() if counts else None,
         kernels.current_stream())

@@ -6,6 +6,9 @@ ops/cluster_intersect.py `occlusion_clusters`, which is its plain
 version: returns (t_boundary, t_other, blocked). A CPU tensor takes the
 plain version; a CUDA tensor launches the hand-written kernel
 csrc/occlusion_walk.cu or raises. `launches` counts kernel launches.
+With has_instances each lane's ray is taken to a row's object space by
+the row's world-to-object matrix before the row's triangle tests; motion
+rows raise.
 
 The kernel keeps no visit queue, so it takes single-level tables up to
 the JAX package's single-level cap, MAX_CLUSTERS (640), as its TPU
@@ -44,16 +47,16 @@ def occlusion_clusters_walk(cbounds, ctable, cboundary, cluster_tris, o, d,
     ((t_boundary, t_other, blocked), (N, 3) int32 rows and boxes tested
     per lane and rows its warp staged)."""
     global launches
-    if has_instances or has_motion:
-        raise NotImplementedError(
-            "instance and motion cluster rows are not ported")
+    if has_motion:
+        raise NotImplementedError("motion cluster rows are not ported")
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")
         return ci.occlusion_clusters(cbounds, ctable, cboundary,
                                      cluster_tris, o, d, tmin,
                                      tmax_closest, tmax_any, int(vis_closest),
-                                     int(vis_any))
+                                     int(vis_any),
+                                     has_instances=bool(has_instances))
     n, c, w = o.shape[0], cbounds.shape[0], ctable.shape[1]
     ct = int(cluster_tris)
     kernels.unsupported(
@@ -89,7 +92,8 @@ def occlusion_clusters_walk(cbounds, ctable, cboundary, cluster_tris, o, d,
         cbounds.data_ptr(), ctable.data_ptr(), cboundary.data_ptr(), c, w,
         ct, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
         tmax_closest.data_ptr(), tmax_any.data_ptr(), n, int(vis_closest),
-        int(vis_any), t_b.data_ptr(), t_o.data_ptr(), blocked.data_ptr(),
+        int(vis_any), int(bool(has_instances)), t_b.data_ptr(),
+        t_o.data_ptr(), blocked.data_ptr(),
         cnt.data_ptr() if counts else None, kernels.current_stream())
     kernels.check_rc("occlusion_walk", rc)
     launches += 1

@@ -13,7 +13,10 @@ version's at exact-t ties between clusters (and there t by an ulp, where
 the two hits are coplanar triangles); hit masks agree, and t, u and v on
 every lane whose prim and object do.
 `launches` counts kernel launches. It takes single-level tables up to the
-JAX package's single-level cap, MAX_CLUSTERS (640). With counts=True the
+JAX package's single-level cap, MAX_CLUSTERS (640), with or without
+instance rows (has_instances: a lane's ray is taken to the row's object
+space before the row's triangle tests; the boxes are world boxes, so the
+visit order needs nothing more); motion rows raise. With counts=True the
 counting variant runs and the call also returns (N, 4) int32 counts per
 lane: the rows its warp fetched (steps), the rows the lane tested, the
 cluster boxes it tested, and its box passes (CUDA tensors only).
@@ -58,15 +61,15 @@ def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
     (hit dict, (N, 4) int32 counts: the steps of the lane's warp, the rows
     the lane tested, its box tests and its box passes)."""
     global launches
-    if has_instances or has_motion:
-        raise NotImplementedError(
-            "instance and motion cluster rows are not ported")
+    if has_motion:
+        raise NotImplementedError("motion cluster rows are not ported")
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
                                      tmin, tmax, visibility,
-                                     shadow_any_hit=shadow_any_hit)
+                                     shadow_any_hit=shadow_any_hit,
+                                     has_instances=bool(has_instances))
     n, c, w = cw.check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin,
                                  tmax, visibility, max_clusters=MAX_CLUSTERS)
     dev = o.device
@@ -81,8 +84,8 @@ def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
         cbounds.data_ptr(), ctable.data_ptr(), c, w, int(cluster_tris),
         o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
         visibility.data_ptr(), n, int(bool(shadow_any_hit)),
-        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        obj.data_ptr(), cnt.data_ptr() if counts else None,
+        int(bool(has_instances)), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+        v.data_ptr(), obj.data_ptr(), cnt.data_ptr() if counts else None,
         kernels.current_stream())
     kernels.check_rc("tile_walk", rc)
     launches += 1
@@ -253,7 +256,7 @@ class LaneQueues:
 
 
 def _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax, visibility,
-                shadow_any_hit, queue):
+                shadow_any_hit, queue, has_instances=False):
     n, c = o.shape[0], cbounds.shape[0]
     o, d, tmin, tmax, vis, live = pad_lanes(o, d, tmin, tmax, visibility)
     dev, lanes_n = o.device, o.shape[0]
@@ -287,7 +290,8 @@ def _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax, visibility,
         if queues is not None:
             cnt[:, 2] += on   # the slab test of the picked cluster
         cnt[:, 1] += test
-        row_test(ctable, cluster_tris, cl, test, ws, tmin, vis, hit)
+        row_test(ctable, cluster_tris, cl, test, ws, tmin, vis, hit,
+                 *((o, d) if has_instances else ()))
         wi = running.nonzero()[:, 0]
         retired[mc[wi], wi] = True
         cnt[:, 0] += on
@@ -297,21 +301,24 @@ def _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax, visibility,
 
 
 def tile_scan_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                    visibility, shadow_any_hit=False):
+                    visibility, shadow_any_hit=False, has_instances=False):
     """K4's earlier design as plain torch: lanes in warps of 32 in index
     order; each step every lane scans its column of the (C, 32) entry
     table for its first smallest unretired entry below its gate, the warp
     takes the lexicographic minimum (entry, cluster), every lane whose
     own entry is below its gate tests that row, and the cluster is
-    retired for the warp. Returns (hit dict, (N, 3) int32: the steps of
+    retired for the warp. With has_instances a lane tests a row with its
+    ray taken to the row's object space (boxes are world boxes: the picks
+    need nothing more). Returns (hit dict, (N, 3) int32: the steps of
     the lane's warp, the rows the lane tested, the entries its picks
     read, C a pick)."""
     return _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                       visibility, shadow_any_hit, None)
+                       visibility, shadow_any_hit, None, has_instances)
 
 
 def tile_queue_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                     visibility, shadow_any_hit=False, queue=QUEUE):
+                     visibility, shadow_any_hit=False, queue=QUEUE,
+                     has_instances=False):
     """K4's kernel as plain torch: the same warp walk, with each lane's
     pick taken from its queue of `queue` pairs (LaneQueues.head) and a
     retired bitmask per warp; every lane then tests its box of the picked
@@ -319,7 +326,7 @@ def tile_queue_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
     of the lane's warp, the rows the lane tested, its box tests, its box
     passes): the counts of intersect_clusters_tile(counts=True)."""
     return _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                       visibility, shadow_any_hit, int(queue))
+                       visibility, shadow_any_hit, int(queue), has_instances)
 
 
 def grid_tables(c, ct, rng, device="cpu"):

@@ -219,7 +219,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
     cb = _t(tabs["cluster_bounds"])
     with pytest.raises(NotImplementedError):
         k2.intersect_clusters_walk(cb, cb, CT, cb, cb, cb, cb, cb,
-                                   has_instances=True)
+                                   has_motion=True)
     with pytest.raises(NotImplementedError):
         k3.occlusion_clusters_walk(cb, cb, cb, CT, cb, cb, cb, cb, cb, 1, 1,
                                    has_motion=True)

@@ -12,7 +12,11 @@ closest-hit ray with mixed per-lane visibility paired with an any-hit ray
 toward the lamp, and each ray switched off by an empty window) through the
 glossy tables; K4 and K5 also against their scan-order and queue-order
 mirrors of the warp's visit order (ops/tile_walk.py, ops/cluster2_walk.py),
-every output and every count equal on every lane. K3's
+every output and every count equal on every lane. The instance rows of
+single-level tables: K2, K4, K3 (both forms) and K7 through
+instanced_scene(grid=6) (577 clusters x 38) and instanced_scene(grid=5,
+nlat=15) (401 x 48), t, u, v to the bit where prim and object agree, and
+K4 there against its mirrors too. K3's
 dual form runs on a seeded random volume-boundary table (the glossy
 scene's own is all zeros), so both of its minima are exercised. Kernel
 and plain version share one operation order and the kernels build with
@@ -478,12 +482,12 @@ def test_counting_variants_keep_the_outputs(kg, kg_volume, kernel):
         assert bool((cnt[:, 2] >= cnt[:, 1]).all())
 
 
-def _in_scan_order(module, kern, scan, queue, args, any_hit, two):
+def _in_scan_order(module, kern, scan, queue, args, any_hit, instances):
     """The kernel's five outputs equal its scan-order mirror's on every
     lane, ties included; its counting variant's outputs equal the plain
     launch's and its counts the queue-order mirror's."""
     kw = {"shadow_any_hit": any_hit}
-    if two:
+    if instances:
         kw["has_instances"] = True
     before = module.launches
     got = kern(*args, **kw)
@@ -537,3 +541,138 @@ def test_cluster2_walk_kernel_in_scan_order(kg_instanced, any_hit):
             tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
     _in_scan_order(k5, k5.intersect_clusters2_walk, k5.cluster2_scan_order,
                    k5.cluster2_queue_order, args, any_hit, True)
+
+
+# ---- instance rows in single-level tables (K2, K3, K4, K7) ----------
+
+SINGLE = {"grid6": {"grid": 6}, "grid5_nlat15": {"grid": 5, "nlat": 15}}
+
+
+@pytest.fixture(scope="module")
+def kg_single():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    out = {}
+    for name, kw in SINGLE.items():
+        s = examples.instanced_scene(64, 64, spp=2, **kw)
+        s.device_update()
+        out[name] = s.make_kernel_globals("cuda")
+        assert out[name]["has_instances"] and "sc_bounds" not in \
+            out[name]["dscene"]
+    return out
+
+
+def _assert_to_the_bit(got, ref):
+    """Hit masks equal; prim and object equal off exact-t ties (<= 1e-4
+    of lanes, the same t there); t, u, v equal to the bit where they
+    agree."""
+    assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
+    assert (ref["prim"] >= 0).float().mean().item() > 0.05
+    same = (got["prim"] == ref["prim"]) & (got["object"] == ref["object"])
+    assert (~same).float().mean().item() <= 1e-4
+    torch.testing.assert_close(got["t"][~same], ref["t"][~same], rtol=1e-6,
+                               atol=1e-4)
+    for k in ("t", "u", "v"):
+        assert torch.equal(got[k][same], ref[k][same]), k
+
+
+@pytest.mark.parametrize("kernel,scene", [("K2", "grid5_nlat15"),
+                                          ("K4", "grid6"),
+                                          ("K4", "grid5_nlat15")])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_kernels_with_instance_rows(kg_single, kernel, scene, any_hit):
+    module, fn = {"K2": (k2, k2.intersect_clusters_walk),
+                  "K4": (k4, k4.intersect_clusters_tile)}[kernel]
+    kg = kg_single[scene]
+    ds = kg["dscene"]
+    o, d, tmax_any, _ = _rays(31, lo=-15.0, hi=15.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"],
+            o, d, tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
+    before = module.launches
+    got = fn(*args, shadow_any_hit=any_hit, has_instances=True)
+    ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit,
+                                has_instances=True)
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    if any_hit:
+        assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
+        return
+    _assert_to_the_bit(got, ref)
+
+
+@pytest.mark.parametrize("form", ["surface", "dual"])
+def test_occlusion_walk_kernel_with_instance_rows(kg_single, form):
+    """K3 on grid=6's table with a seeded random boundary table: every
+    output to the bit (minima and OR do not depend on the visit order)."""
+    kg = kg_single["grid6"]
+    ds = kg["dscene"]
+    o, d, tmax_any, _ = _rays(32, lo=-15.0, hi=15.0)
+    tmax_c = torch.where(tmax_any < 1e29, tmax_any, 30.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    cbd = torch.tensor(np.random.default_rng(33).integers(
+        0, 2, ds["cluster_boundary"].shape).astype(np.float32),
+        device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], cbd,
+            kg["cluster_tris"], o, d, tmin,
+            tmin if form == "surface" else tmax_c, tmax_any, 1, 128)
+    before = k3.launches
+    got = k3.occlusion_clusters_walk(*args, has_instances=True)
+    ref = ci.occlusion_clusters(*args, has_instances=True)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert 0.05 < ref[2].float().mean().item() < 0.95
+    if form == "dual":
+        assert (ref[0] < 1e29).float().mean().item() > 0.01
+        assert (ref[1] < 1e29).float().mean().item() > 0.01
+
+
+@pytest.mark.parametrize("disabled", [None, "any"])
+def test_dual_walk_kernel_with_instance_rows(kg_single, disabled):
+    """K7 on grid=5 / nlat=15's table: closest rays from inside the
+    scene, any-hit rays toward the sun; blocked equal, the closest hit to
+    the bit."""
+    kg = kg_single["grid5_nlat15"]
+    ds = kg["dscene"]
+    o, d, _tmax_any, _ = _rays(34, lo=-15.0, hi=15.0)
+    sun = torch.tensor([0.3, -0.4, 0.85], device="cuda")
+    sun = sun / sun.norm()
+    o_a = (o + 0.05 * sun).contiguous()
+    d_a = sun.expand(N, 3).contiguous()
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax_c = torch.full((N,), 1e30, device="cuda")
+    tmax_a = torch.full((N,), -1.0 if disabled else 1e30, device="cuda")
+    vis = torch.ones(N, dtype=torch.int32, device="cuda")
+    vis_a = torch.full((N,), 128, dtype=torch.int32, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"],
+            o, d, tmin, tmax_c, vis, o_a, d_a, tmin, tmax_a, vis_a)
+    before = k7.launches
+    got, blk = k7.intersect_clusters_dual_walk(*args, has_instances=True)
+    ref, rblk = ci.intersect_clusters_dual(*args, has_instances=True)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1
+    assert torch.equal(blk, rblk)
+    if disabled:
+        assert not blk.any()
+    else:
+        assert 0.02 < blk.float().mean().item() < 0.98
+    _assert_to_the_bit(got, ref)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tile_walk_kernel_in_scan_order_with_instance_rows(kg_single,
+                                                          any_hit):
+    """K4 on grid=6's table, held to tile_scan_order and
+    tile_queue_order with instance rows."""
+    kg = kg_single["grid6"]
+    ds = kg["dscene"]
+    o, d, tmax_any, _ = _rays(35, lo=-15.0, hi=15.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"],
+            o, d, tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
+    _in_scan_order(k4, k4.intersect_clusters_tile, k4.tile_scan_order,
+                   k4.tile_queue_order, args, any_hit, True)

@@ -13,8 +13,10 @@ through the CLI's scene loader, fixed and through render's adaptive
 branch, and takes one round of the host-planned adaptive loop. In a
 third, the textured_instanced scene (example:textured_instanced: 8,450
 prims built by the port's own C++ BVH builder) renders 8x8 at 2 spp
-through the CLI's scene loader. The sources import neither jax nor
-anything of the JAX package."""
+through the CLI's scene loader, and instanced_scene(grid=6)
+(example:instanced_grid6: a single-level table with instance rows, K4's
+and K3's plain versions) 8x8 at 1 spp. The sources import neither jax
+nor anything of the JAX package."""
 
 import os
 import re
@@ -146,8 +148,17 @@ assert kg["dscene"]["prim_table"].shape[0] == 8450
 assert not kg["has_instances"] and kg["cluster_tris"] == 30
 img = render(sc, samples=2, chunk=2, device="cpu", kg=kg)
 assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.mean() > 0
+sc6, flags6 = cli.load_scene("example:instanced_grid6")
+assert not flags6
+sc6.camera.set("width", 8)
+sc6.camera.set("height", 8)
+sc6.device_update()
+kg6 = sc6.make_kernel_globals("cpu")
+assert kg6["has_instances"] and kg6["dscene"]["cluster_bounds"].shape[0] == 577
+img6 = render(sc6, samples=1, chunk=1, device="cpu", kg=kg6)
+assert img6.shape == (8, 8, 3) and np.isfinite(img6).all() and img6.mean() > 0
 assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
-print("NOJAX_TEXTURED_OK", float(img.mean()))
+print("NOJAX_TEXTURED_OK", float(img.mean()), float(img6.mean()))
 """
 
 
