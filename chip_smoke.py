@@ -238,9 +238,9 @@ threshold 0.02; only the camera is new, so K2 and K3 as for glossy):
    inputs (outputs equal to the plain launch's), their rows and boxes per
    lane printed beside glossy's; both held against their plain versions
    on the copied inputs to the bit and timed; then the fixed render, the
-   CLI's adaptive render and render_adaptive_device, one warm-up and
-   three renders each in turns, Msamples/s as the nominal budget over
-   the wall time (median, min-max).
+   CLI's adaptive render and render_adaptive_device, three renders
+   each in turns (warm from phase 34), Msamples/s as the nominal budget
+   over the wall time (median, min-max).
 
 textured_instanced (instanced_scene at grid=4: 16 image-textured spheres
 on a checkered ground under a distant sun and a sky, 8,450 prims compiled
@@ -339,6 +339,57 @@ rows; K2 and K3, and in fused-NEE mode K7):
    their plain versions on them and timed, and K2 and K3 on K7's rays
    beside it.
 
+glossy_deform (the glossy box, its mirror sphere on a two-step deform
+path: motion cluster rows, 179 clusters x 15 triangles of 328 floats; K2
+for every closest hit, K3 for every shadow test, each lane at its ray's
+time; K4 in place of K2 under examples.GLOSSY_DEFORM_TILE):
+
+50. the host compile (example:glossy_deform) and its dispatch; K2 (to the
+   bit) and K4 (t, u, v to the bit off exact-t ties, every output its
+   scan-order mirror's) closest and any hit, K3's surface form (NEE
+   shadow rays from the first hits) and dual form (a seeded boundary
+   table), to the bit, with motion rows, on 65,536 random and 65,536
+   camera rays at seeded times in [0, 1]; then at time 0 every motion
+   mode against the same kernel's static walk over the static glossy
+   table (the same hits: masks, and t, u, v off exact-t ties; K3 every
+   output);
+51. accuracy: 64x64, 128 spp, chunk 16, clamp off, against the JAX
+   package's float64 render raytracingproject_tpu_torch/data/
+   twin_glossy_deform.npz (python -m tests.test_torch_deform_render twin
+   glossy f32|f64): rmse at most twice its float32 render's, pixels off by
+   more than 1e-3 at most twice its share or 0.07%;
+52. full width: 256x256, 64 spp, chunk 32 through the CLI code path,
+   example:glossy_deform (K2 and K3 launched and no other walk) and
+   example:glossy_deform:tile (K4 and K3), each finite with a mean within
+   0.5% of the JAX package's (JAX_MEAN_GLOSSY_DEFORM_256); the inputs of
+   each kernel's third call are copied;
+53. counts and times: the counting variants of K2 and K3 on the copied
+   inputs, of K4 on the tile render's (its counts equal to
+   tile_queue_order's at the lanes' times); K2, K3 (to the bit) and K4
+   held against their plain versions on them and timed, K2 also on
+   camera rays at seeded times.
+
+cornell_deform (the Cornell box, its short box on a three-step deform
+path, 36 prims: K1's deform modes for every closest hit and shadow
+test):
+
+54. the host compile (example:cornell_deform) and its dispatch; K1's
+   closest, any and dual deform modes, on the three-step path and on its
+   last step alone, against their plain versions on 65,536 random rays
+   (mixed visibility, a tenth of the windows empty), 65,536 camera rays
+   and the grazing set, at seeded times: every output to the bit, and on
+   the three-step path the counting variant's kept blocks equal to the
+   mirror's (ops/dense_sweep.py kept_blocks with the steps); at time 0
+   each deform mode equal to the static sweep to the bit;
+55. accuracy as in 51 against data/twin_cornell_deform.npz;
+56. full width: 256x256, 64 spp, chunk 32 through the CLI code path
+   (example:cornell_deform): finite, mean within 0.5% of the JAX
+   package's (JAX_MEAN_CORNELL_DEFORM_256), K1's closest and any modes
+   launched and nothing else;
+57. counts and times: K1's counting variant on the copied closest and
+   any-hit inputs (kept blocks equal the mirror's), then each held against
+   its plain version (to the bit) and timed.
+
 Launch counts are set to 0 just before each full-width render and read
 just after it; the launches of the comparisons do not count. A kernel's
 time is the median of three timings, each the median of 20 runs. Each
@@ -351,8 +402,9 @@ not here. The script
 takes about 10 minutes, the kernels' build included.
 
 The last three lines are the card's name and power limit, a JSON line
-describing each kernel (with its modes in this run, and for K2, K3, K4
-and K7 their instance-row mode's launches and time), and {"ok": true,
+describing each kernel (with its modes in this run, for K2, K3, K4
+and K7 their instance-row mode's launches and time, and for K1's closest
+and any modes, K2, K3 and K4 their motion mode's), and {"ok": true,
 "device": {...}}.
 """
 
@@ -435,6 +487,9 @@ MT_OPS = 56
 # K1's cull: one lane against one block's padded box (counted from
 # csrc/dense_sweep.cu keep_block)
 KEEP_OPS = 40
+# a triangle lerped to a lane's time (motion rows, K1's deform modes, a
+# segment of the path): nine multiplies and nine adds
+LERP_OPS = 18
 # the grazing set of K1's checks (ops/dense_sweep.py grazing_rays)
 N_GRAZING = 65536
 # the adaptive phase: glossy at ADAPTIVE_SIZE^2, and the threshold of the
@@ -505,14 +560,31 @@ INST_SIZE, INST_SPP, INST_CHUNK = 256, 64, 32
 # tests.test_torch_instanced_single_render6 twin f32|f64); the gate is
 # twice the float32 render's own rmse against the float64 one
 TWIN_GRID6 = "raytracingproject_tpu_torch/data/twin_instanced_grid6.npz"
+# deforming motion: glossy_deform (the glossy box, its mirror sphere on a
+# two-step path: motion cluster rows, K2 and K3; K4 and K3 under
+# examples.GLOSSY_DEFORM_TILE) and cornell_deform (the Cornell box, its
+# short box on a three-step path: K1's deform modes), 256x256x64 in
+# chunks of 32. The JAX package's means of those renders
+# (render_samples_regen on the CPU, float64 sum, strips of 64 rows;
+# python -m tests.test_torch_deform_render mean glossy|cornell 256 64 32;
+# the tile dispatch is the same estimator) and their 64x64x128 twins,
+# clamp off, in float32 ("f32_jax") and float64 ("f64"; python -m
+# tests.test_torch_deform_render twin glossy|cornell f32|f64)
+JAX_MEAN_GLOSSY_DEFORM_256 = 0.17661716007537295
+JAX_MEAN_CORNELL_DEFORM_256 = 0.1653792549472399
+DEFORM_SIZE, DEFORM_SPP, DEFORM_CHUNK = 256, 64, 32
+TWIN_DEFORM = {name: f"raytracingproject_tpu_torch/data/twin_{name}.npz"
+               for name in ("glossy_deform", "cornell_deform")}
 # each kernel's modes in this run, and, for the single-level walks whose
 # instance-row mode is in this run, that mode's timed case and the paths
-# that launch it
-MODES = {"dense_closest": ["closest", "mt"], "dense_any": ["any"],
-         "dense_dual": ["dual"],
-         "cluster_walk": ["closest", "any", "instance rows"],
-         "occlusion_walk": ["surface", "dual", "instance rows"],
-         "tile_walk": ["closest", "any", "instance rows"],
+# that launch it (and alike for the motion modes)
+MODES = {"dense_closest": ["closest", "mt", "deform"],
+         "dense_any": ["any", "deform"],
+         "dense_dual": ["dual", "deform"],
+         "cluster_walk": ["closest", "any", "instance rows", "motion rows"],
+         "occlusion_walk": ["surface", "dual", "instance rows",
+                            "motion rows"],
+         "tile_walk": ["closest", "any", "instance rows", "motion rows"],
          "cluster2_walk": ["closest", "any", "instance rows"],
          "onehot2_walk": ["closest", "any", "instance rows"],
          "dual_walk": ["dual", "instance rows"]}
@@ -522,6 +594,12 @@ INSTANCE_CASES = {"cluster_walk": "K2 closest render (grid=5 nlat=15)",
                   "dual_walk": "K7 dual render (grid=5 nlat=15)"}
 INSTANCE_PATHS = ("instanced_grid6", "instanced_grid5_nlat15",
                   "instanced_grid5_nlat15_fused")
+MOTION_CASES = {"dense_closest": "K1 closest render (cornell_deform)",
+                "dense_any": "K1 any render (cornell_deform)",
+                "cluster_walk": "K2 closest render (glossy_deform)",
+                "occlusion_walk": "K3 surface render (glossy_deform)",
+                "tile_walk": "K4 closest render (glossy_deform tile)"}
+MOTION_PATHS = ("glossy_deform", "glossy_deform_tile", "cornell_deform")
 # timed renders per driver in the fixed-vs-adaptive measurement
 DOF_RENDERS = 3
 HBM_BYTES_PER_S = 3.35e12
@@ -720,27 +798,32 @@ SCAN_COUNTS = {"tile_walk": ("warp steps", "rows tested", "entries read"),
                "onehot2_walk": ORDER_COUNTS["onehot2_walk"]}
 
 
-def order_mirror(name, args, any_hit, queue=False, instances=False):
+def order_mirror(name, args, any_hit, queue=False, instances=False,
+                 motion=None):
     """The scan-order (queue=False) or queue-order mirror of K4
     ("tile_walk"; args: the walk's eight positional arguments; instance
-    rows with instances=True), K5 ("cluster2_walk") or K6
-    ("onehot2_walk"; args: sc_bounds, cbounds, ctable, cluster_tris, gmax,
-    o, d, tmin, tmax, visibility; instance rows) on the kernel's inputs:
-    (hit dict, counts), for K6 also the warp's inner steps."""
+    rows with instances=True; motion rows at the lanes' times with
+    motion=time), K5 ("cluster2_walk") or K6 ("onehot2_walk"; args:
+    sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d, tmin, tmax,
+    visibility; instance rows) on the kernel's inputs: (hit dict,
+    counts), for K6 also the warp's inner steps."""
     fn = getattr(module(name), ORDER_MIRRORS[name][int(queue)])
     kw = {"shadow_any_hit": any_hit}
     if name in TWO_LEVEL or instances:
         kw["has_instances"] = True
+    if motion is not None:
+        kw.update(time=motion, has_motion=True)
     return fn(*args, **kw)
 
 
-def held_to_scan_order(label, name, args, any_hit, got, instances=False):
+def held_to_scan_order(label, name, args, any_hit, got, instances=False,
+                       motion=None):
     """Every output of K4, K5 or K6 equal to its scan-order mirror's on
     every lane, exact-t ties included: the kernel visits the earlier
     design's clusters in that design's order. Returns the mirror's
     counts."""
     mirror, counts = order_mirror(name, args, any_hit,
-                                  instances=instances)[:2]
+                                  instances=instances, motion=motion)[:2]
     for k in mirror:
         assert torch.equal(got[k], mirror[k]), \
             f"{label}: output {k} differs from the scan-order mirror's"
@@ -763,14 +846,16 @@ def exact_off_ties(compare):
     return held
 
 
-def in_scan_order(compare, name, args, any_hit, instances=False):
+def in_scan_order(compare, name, args, any_hit, instances=False,
+                  motion=None):
     """A K4, K5 or K6 case's check: `compare` (for a closest hit t, u, v to
     the bit off the ties), then held_to_scan_order."""
     base = compare if any_hit else exact_off_ties(compare)
 
     def held(label, ref, got, *extra):
         err = base(label, ref, got, *extra)
-        held_to_scan_order(label, name, args, any_hit, got, instances)
+        held_to_scan_order(label, name, args, any_hit, got, instances,
+                           motion)
         return err
     return held
 
@@ -785,7 +870,8 @@ def column_stats(cnt, names):
             for j, nm in enumerate(names)}
 
 
-def order_count_phase(label, name, args, any_hit, instances=False):
+def order_count_phase(label, name, args, any_hit, instances=False,
+                      motion=None):
     """The counting variant of K4, K5 or K6 on one input: its outputs
     equal the plain launch's and the scan-order mirror's, and its counts
     equal the queue-order mirror's on every lane. Prints and returns
@@ -796,15 +882,18 @@ def order_count_phase(label, name, args, any_hit, instances=False):
     kw = {"shadow_any_hit": any_hit}
     if name in TWO_LEVEL or instances:
         kw["has_instances"] = True
+    if motion is not None:
+        kw.update(time=motion, has_motion=True)
     kern = wrapper(name)
     ref = kern(*args, **kw)
     got, cnt = kern(*args, counts=True, **kw)
     sync()
     assert all(torch.equal(ref[k], got[k]) for k in ref), \
         f"{label}: the counting variant's outputs differ"
-    scnt = held_to_scan_order(label, name, args, any_hit, got, instances)
+    scnt = held_to_scan_order(label, name, args, any_hit, got, instances,
+                              motion)
     queue = order_mirror(name, args, any_hit, queue=True,
-                         instances=instances)
+                         instances=instances, motion=motion)
     assert torch.equal(cnt, queue[1]), \
         f"{label}: the counts differ from the queue-order mirror's"
     st = {"kernel": column_stats(cnt, ORDER_COUNTS[name]),
@@ -868,7 +957,7 @@ def count_phase(label, name, rec):
         ref = kern(*args)
         got, cnt = kern(*args, counts=True)
     else:
-        kw = {"shadow_any_hit": args[8], "has_instances": args[9]}
+        kw = _walk_kw(args)
         ref = kern(*args[:8], **kw)
         got, cnt = kern(*args[:8], counts=True, **kw)
     sync()
@@ -907,7 +996,7 @@ def _bound(nbytes, ops):
 
 def _prims_per_cluster(ctable, ct):
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
-    pb = ci.META_COLS + 9 * ct
+    pb = ci.prim_col(ct, ci.is_motion_table(ctable, ct))
     return (ctable[:, pb:pb + ct] >= 0).sum(1).to(torch.float64)
 
 
@@ -918,23 +1007,27 @@ def walk_bound(args, kw, out):
     cluster it enters before its final t (a miss: every cluster it
     enters); an any-hit lane that hits tests one triangle. With instance
     rows (has_instances in kw) each cluster a lane tests also costs it a
-    transform of its ray (XFORM_OPS), as in cluster2_bound."""
+    transform of its ray (XFORM_OPS), as in cluster2_bound; with motion
+    rows (has_motion) each triangle test its lerp to the lane's time
+    (LERP_OPS), and the lanes' times are read once."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     cb, ctab, ct, o, d, tmin, tmax, vis = args[:8]
     any_hit = bool(kw.get("shadow_any_hit", False))
     xform = XFORM_OPS if kw.get("has_instances", False) else 0
+    lerp = LERP_OPS if kw.get("has_motion", False) else 0
+    tm = kw.get("time") if lerp else None
     entry = ci.entry_table(cb, o, d, tmin, tmax)
     entered = entry < ci.INF
     if not any_hit:
         entered = entered & (entry < out["t"][None])
-    per = _prims_per_cluster(ctab, int(ct)) * TRI_OPS + xform
+    per = _prims_per_cluster(ctab, int(ct)) * (TRI_OPS + lerp) + xform
     row_ops = (entered.to(torch.float64) * per[:, None]).sum(0)
     if any_hit:
-        row_ops = torch.where(out["prim"] >= 0, float(TRI_OPS + xform),
-                              row_ops)
+        row_ops = torch.where(out["prim"] >= 0,
+                              float(TRI_OPS + lerp + xform), row_ops)
     n, c = o.shape[0], cb.shape[0]
     ops = n * c * SLAB_OPS + float(row_ops.sum())
-    return _bound(_nbytes(cb, ctab, o, d, tmin, tmax, vis,
+    return _bound(_nbytes(cb, ctab, o, d, tmin, tmax, vis, tm,
                           *out.values()), ops)
 
 
@@ -942,22 +1035,26 @@ def occlusion_bound(args, out):
     """(bound ms, bound_by) of one K3 call: every lane tests every cluster
     box once and the triangles of each cluster it enters below its final
     gate (a blocked lane at least one triangle); with instance rows
-    (args[11]) a transform of its ray (XFORM_OPS) for each such cluster."""
+    (args[11]) a transform of its ray (XFORM_OPS) for each such cluster;
+    with motion rows (args[13]) a lerp (LERP_OPS) for each triangle test,
+    the lanes' times (args[12]) read once."""
     from raytracingproject_tpu_torch.ops import cluster_intersect as ci
     cb, ctab, cbd, ct, o, d, tmin, tmaxc, tmaxa = args[:9]
     xform = XFORM_OPS if len(args) > 11 and args[11] else 0
+    motion = len(args) > 13 and bool(args[13])
+    lerp = LERP_OPS if motion else 0
     t_b, t_o, blocked = out
     entry = ci.entry_table(cb, o, d, tmin, torch.maximum(tmaxc, tmaxa))
     gate = ci.occlusion_gate(t_b, t_o, blocked, tmaxc, tmaxa)
-    per = _prims_per_cluster(ctab, int(ct)) * TRI_OPS + xform
+    per = _prims_per_cluster(ctab, int(ct)) * (TRI_OPS + lerp) + xform
     row_ops = ((entry < gate[None]).to(torch.float64) * per[:, None]).sum(0)
-    row_ops = torch.where(blocked,
-                          torch.clamp(row_ops, min=float(TRI_OPS + xform)),
-                          row_ops)
+    row_ops = torch.where(blocked, torch.clamp(
+        row_ops, min=float(TRI_OPS + lerp + xform)), row_ops)
     n, c = o.shape[0], cb.shape[0]
     ops = n * c * SLAB_OPS + float(row_ops.sum())
     return _bound(_nbytes(cb, ctab, cbd, o, d, tmin, tmaxc, tmaxa,
-                          t_b, t_o, blocked), ops)
+                          args[12] if motion else None, t_b, t_o, blocked),
+                  ops)
 
 
 def check_walks(kg, n_check, rng, walks, occlusion_forms,
@@ -1135,13 +1232,20 @@ def _positional(name, rec):
     return tuple(bound.arguments.values())
 
 
+def _walk_kw(args):
+    """A closest-hit walk's keyword arguments from the plain version's
+    positional ones (shadow_any_hit, has_instances, time, has_motion)."""
+    return {"shadow_any_hit": args[8], "has_instances": args[9],
+            "time": args[10], "has_motion": args[11]}
+
+
 def _recorded_case(name, rec, compare):
     """A timed case on a recorded call of wrapper `name`."""
     args = _positional(name, rec)
     if name == "occlusion_walk":
         return (lambda: wrapper(name)(*args), lambda: _plain(name)(*args),
                 name, compare, lambda out: occlusion_bound(args, out))
-    kw = {"shadow_any_hit": args[8], "has_instances": args[9]}
+    kw = _walk_kw(args)
     return (lambda: wrapper(name)(*args[:8], **kw),
             lambda: _plain(name)(*args),
             name, compare, lambda out: walk_bound(args, kw, out))
@@ -1574,7 +1678,7 @@ def dense_bound(name, args, kw, out):
         per_test = MT_OPS
     else:
         p = a["tri_verts"].shape[0]
-        per_test = TRI_OPS
+        per_test = TRI_OPS + _lerp_ops(a)
         if name == "dense_dual":
             window = torch.maximum(a["tmax_closest"], a["tmax_any"]) \
                 > a["tmin"]
@@ -1588,6 +1692,15 @@ def dense_bound(name, args, kw, out):
     outs = out.values() if isinstance(out, dict) else (
         out if isinstance(out, tuple) else (out,))
     return _bound(_nbytes(*a.values(), *outs), tests * per_test)
+
+
+def _lerp_ops(a):
+    """K1's deform modes: the operations of one triangle's lerp to a
+    lane's time (LERP_OPS a segment of its path), 0 without them."""
+    steps = a.get("tri_verts_t1")
+    if steps is None:
+        return 0
+    return LERP_OPS * (steps.shape[0] if steps.dim() == 4 else 1)
 
 
 def check_dense(kg, n_check, rng, label):
@@ -1727,7 +1840,7 @@ def dense_counted_bound(name, args, kw):
         live = a["tmax"].clamp(max=1e30) > a["tmin"]
     nb = (a["tri_verts"].shape[0] + isect.TRI_BLOCK - 1) // isect.TRI_BLOCK
     ops = float(live.sum()) * nb * KEEP_OPS \
-        + float(cnt[:, 0].to(torch.float64).sum()) * TRI_OPS
+        + float(cnt[:, 0].to(torch.float64).sum()) * (TRI_OPS + _lerp_ops(a))
     return _bound(_nbytes(*a.values(), *_tensors(out)), ops)[0]
 
 
@@ -2275,9 +2388,10 @@ def dof_device_adaptive(kg, card, fixed_mean):
 
 def dof_fixed_vs_adaptive(dev, card, kg):
     """Phase 35: the fixed render, the CLI's adaptive render and
-    render_adaptive_device, one warm-up and DOF_RENDERS timed renders
-    each, in turns; Msamples/s counts the nominal budget over the wall
-    time. Returns {driver: [Msamples/s]}."""
+    render_adaptive_device, DOF_RENDERS timed renders each, in turns (all
+    three are warm from phase 34's renders of the same kernel globals);
+    Msamples/s counts the nominal budget over the wall time. Returns
+    {driver: [Msamples/s]}."""
     from raytracingproject_tpu_torch.app import cli
     from raytracingproject_tpu_torch.session.adaptive import \
         render_adaptive_device
@@ -2294,18 +2408,17 @@ def dof_fixed_vs_adaptive(dev, card, kg):
             min_samples=DOF_MIN_SAMPLES, chunk=DOF_MIN_SAMPLES,
             lanes=DOF_SIZE * DOF_SIZE)}
     rates = {k: [] for k in drivers}
-    for i in range(DOF_RENDERS + 1):
+    for _ in range(DOF_RENDERS):
         for name, fn in drivers.items():
             sync()
             t0 = time.perf_counter()
             fn()
             sync()
-            if i:
-                wall = time.perf_counter() - t0
-                rates[name].append(nominal / wall / 1e6)
+            wall = time.perf_counter() - t0
+            rates[name].append(nominal / wall / 1e6)
     for name, r in rates.items():
         log(f"[render] dof_motion {name}: {np.median(r):.4f} Msamples/s "
-            f"(median of {DOF_RENDERS} after a warm-up, {min(r):.4f}-"
+            f"(median of {DOF_RENDERS}, warm from phase 34, {min(r):.4f}-"
             f"{max(r):.4f}; nominal budget over the wall time) on {card}")
     return rates
 
@@ -2655,6 +2768,334 @@ def grid5n15_main_path_checks(kg, card, rec, frec):
     return times, errs
 
 
+def deform_compile(spec, dev, static_kg):
+    """Phases 50 and 54: the host compile of a deforming example through
+    the CLI's scene loader, its deform statics and dispatch, and the
+    static scene it moves (static_kg): the same prims at shutter open."""
+    from raytracingproject_tpu_torch.app import cli
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    from raytracingproject_tpu_torch.ops import integrator as integ
+    scene, flags = cli.load_scene(spec)
+    assert not flags
+    kg, compile_s, _bvh_s = timed_compile(scene, dev)
+    ds, ss = kg["dscene"], static_kg["dscene"]
+    moved = (ds["tri_verts_world_t1"] != ds["tri_verts_world"]) \
+        .flatten(1).any(1)
+    assert kg["has_deform_motion"] and kg["has_motion"]
+    assert torch.equal(ds["tri_verts_world"], ss["tri_verts_world"])
+    if kg["cluster_motion"]:
+        ct = int(kg["cluster_tris"])
+        assert ds["cluster_table"].shape == (179, ci.row_width(ct, True))
+        assert ct == 15 and not kg["use_brute"]
+        assert ds["cluster_table"].shape[0] == ss["cluster_table"].shape[0]
+        assert integ._closest_walk_name(kg) == "cluster_walk"
+        assert integ._use_occlusion_walk(kg)
+        assert not integ._use_fused_nee({**kg, "fused_nee": True})
+        shape = (f"{ds['cluster_bounds'].shape[0]} clusters x {ct} "
+                 f"triangles, motion rows of {ds['cluster_table'].shape[1]} "
+                 "floats")
+    else:
+        assert kg["use_brute"] and "cluster_table" not in ds
+        assert kg["deform_steps"] == 3
+        shape = (f"dense, a path of {kg['deform_steps']} steps "
+                 f"({tuple(ds['tri_verts_world_steps'].shape)})")
+    log(f"[compile] {spec}: {ds['prim_table'].shape[0]} prims, "
+        f"{int(moved.sum())} moving, {shape}, host compile "
+        f"{compile_s:.3f} s")
+    return kg
+
+
+def lane_times(n, rng, dev):
+    """Seeded uniform shutter times in [0, 1]."""
+    return torch.tensor(rng.uniform(0.0, 1.0, n).astype(np.float32),
+                        device=dev)
+
+
+def motion_shadow_rays(kg, o, d, tm, rng):
+    """NEE shadow rays from the rays' first hits at their times (the plain
+    motion walk) toward the light (the port's own light sampler); lanes
+    that miss get the empty window [1e-5, 1e-5]."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds = kg["dscene"]
+    n = o.shape[0]
+    hit = ci.intersect_clusters(
+        ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
+        o, d, torch.zeros(n, device=o.device),
+        torch.full((n,), 1e30, device=o.device),
+        torch.full((n,), 1, dtype=torch.int32, device=o.device), time=tm,
+        has_motion=True)
+    return sun_shadow_rays(kg, o, d, rng, hit=hit)
+
+
+def check_motion_walks(kg, static_kg, rng):
+    """Phase 50: on glossy_deform's motion table, K2 (to the bit) and K4
+    (t, u, v to the bit off exact-t ties, every output its scan-order
+    mirror's) closest and any hit, and K3 in its surface form (NEE
+    shadow rays from the rays' first hits) and its dual form (a seeded
+    random boundary table), to the bit, on 65,536 random rays from inside
+    the scene and 65,536 camera rays, each lane at a seeded time in [0,
+    1]; then the time-0 check: every motion mode at time 0 gives the
+    static walk's hits over the static glossy table (the same clusters,
+    static bounds): masks equal, t, u, v to the bit where the prim
+    agrees (K3: every output). Returns max |t| error per kernel."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    ds, ss = kg["dscene"], static_kg["dscene"]
+    cb, ct_, cbd = ds["cluster_bounds"], ds["cluster_table"], \
+        ds["cluster_boundary"]
+    ctris = int(kg["cluster_tris"])
+    dev = cb.device
+    side = int(round(N_CHECK ** 0.5))
+    lo, hi = scene_box(kg)
+    errs = {"cluster_walk": 0.0, "tile_walk": 0.0, "occlusion_walk": 0.0}
+    planted = torch.tensor(rng.integers(0, 2, cbd.shape).astype(np.float32),
+                           device=dev)
+    for rays, (o, d), tmin0 in (
+            ("random", random_rays(N_CHECK, rng, dev, lo, hi), 1e-4),
+            ("camera", camera_rays(kg, side, side, dev), 0.0)):
+        n = o.shape[0]
+        tm = lane_times(n, rng, dev)
+        mkw = {"time": tm, "has_motion": True}
+        tmin = torch.full((n,), tmin0, device=dev)
+        args = (cb, ct_, ctris, o, d, tmin, torch.full((n,), 1e30, device=dev),
+                torch.full((n,), 1, dtype=torch.int32, device=dev))
+        for any_hit in (False, True):
+            ref = ci.intersect_clusters(*args, shadow_any_hit=any_hit, **mkw)
+            mode = "any-hit" if any_hit else "closest"
+            for walk in ("cluster_walk", "tile_walk"):
+                got = wrapper(walk)(*args, shadow_any_hit=any_hit, **mkw)
+                sync()
+                name = f"{walk} {mode} {rays} glossy_deform (motion rows)"
+                if walk == "tile_walk":
+                    e = in_scan_order(compare_walk, walk, args, any_hit,
+                                      motion=tm)(name, ref, got, any_hit)
+                elif any_hit:
+                    e = compare_any_hit(name, ref, got)
+                else:
+                    e = exactly(compare_hits)(name, ref, got)
+                errs[walk] = max(errs[walk], e)
+        so, sd, stmin, stmax = motion_shadow_rays(kg, o, d, tm, rng)
+        tmaxc, tmaxa = (torch.tensor(a.astype(np.float32), device=dev)
+                        for a in (rng.uniform(10, 1000, n), np.where(
+                            rng.uniform(size=n) < 0.5,
+                            rng.uniform(10, 800, n), 1e30)))
+        for form, occ in (
+                ("surface shadow", (cb, ct_, cbd, ctris, so, sd, stmin,
+                                    stmin, stmax, 1, 128)),
+                ("planted dual", (cb, ct_, planted, ctris, o, d, tmin,
+                                  tmaxc, tmaxa, 1, 128))):
+            ref = ci.occlusion_clusters(*occ, **mkw)
+            got = wrapper("occlusion_walk")(*occ, **mkw)
+            sync()
+            errs["occlusion_walk"] = max(errs["occlusion_walk"], exactly(
+                lambda *a: compare_occlusion(
+                    *a, need_boundary=form != "surface shadow"))(
+                    f"occlusion_walk {form} {rays} glossy_deform "
+                    "(motion rows)", ref, got))
+        # ---- the time-0 check: the static walks over the static table
+        zero = {"time": torch.zeros(n, device=dev), "has_motion": True}
+        sargs = (ss["cluster_bounds"], ss["cluster_table"], ctris,
+                 *args[3:])
+        for walk in ("cluster_walk", "tile_walk"):
+            for any_hit in (False, True):
+                got = wrapper(walk)(*args, shadow_any_hit=any_hit, **zero)
+                ref = wrapper(walk)(*sargs, shadow_any_hit=any_hit)
+                sync()
+                name = (f"{walk} {'any-hit' if any_hit else 'closest'} "
+                        f"{rays} glossy_deform at time 0 vs the static "
+                        "table")
+                if any_hit:
+                    compare_any_hit(name, ref, got)
+                else:
+                    exact_off_ties(compare_hits)(name, ref, got)
+        for form, occ in (("surface shadow", (so, sd, stmin, stmin, stmax)),
+                          ("dual", (o, d, tmin, tmaxc, tmaxa))):
+            got = wrapper("occlusion_walk")(cb, ct_, cbd, ctris, *occ, 1,
+                                            128, **zero)
+            ref = wrapper("occlusion_walk")(
+                ss["cluster_bounds"], ss["cluster_table"],
+                ss["cluster_boundary"], ctris, *occ, 1, 128)
+            sync()
+            exactly(compare_occlusion)(
+                f"occlusion_walk {form} {rays} glossy_deform at time 0 vs "
+                "the static table", ref, got)
+    return errs
+
+
+def glossy_deform_main_path_checks(kg, card, rec, trec, counts):
+    """Phase 53: the counting variants of K2 and K3 on the glossy_deform
+    render's recorded inputs and of K4 on the tile render's (its counts
+    equal to tile_queue_order's, at the lanes' times), their rows and
+    boxes printed beside glossy's; then K2 and K3 (to the bit) and K4 (t,
+    u, v to the bit off exact-t ties, every output its scan-order
+    mirror's) held against their plain versions on those inputs and
+    timed, and K2 on camera rays at seeded times."""
+    from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+    for name, label, r in (("cluster_walk", "K2 closest", rec),
+                           ("occlusion_walk", "K3 surface", rec)):
+        args = _positional(name, r[name])
+        assert args[13 if name == "occlusion_walk" else 11], \
+            f"the recorded {label} call has no motion rows"
+        counts[name]["glossy_deform render"] = count_phase(
+            f"{label}, glossy_deform render (motion rows)", name, r[name])
+        g = counts[name]["glossy render"]
+        x = counts[name]["glossy_deform render"]
+        log(f"[counts] {label.split()[0]} rows per lane: glossy_deform "
+            f"{x['rows']['mean']:.2f}, glossy {g['rows']['mean']:.2f}; "
+            f"boxes per lane: glossy_deform {x['boxes']['mean']:.2f}, "
+            f"glossy {g['boxes']['mean']:.2f}")
+    rk4 = _positional("tile_walk", trec["tile_walk"])
+    assert rk4[11], "the recorded K4 call has no motion rows"
+    counts["tile_walk"]["glossy_deform tile render"] = order_count_phase(
+        "K4 closest, glossy_deform tile render (motion rows)", "tile_walk",
+        rk4[:8], rk4[8], motion=rk4[10])
+    n = rec["cluster_walk"]["args"][4].shape[0]
+    kinds, shares = _lane_visibility("cluster_walk", rec["cluster_walk"])
+    log(f"[main-path] recorded K2 input (glossy_deform): visibility values "
+        f"{kinds}, lane shares {shares}")
+    assert len(kinds) > 1, "the recorded K2 call holds no bounce rays"
+    ds = kg["dscene"]
+    o, d = camera_rays(kg, DEFORM_SIZE, DEFORM_SIZE, ds["cluster_bounds"]
+                       .device)
+    cam = (ds["cluster_bounds"], ds["cluster_table"], int(kg["cluster_tris"]),
+           o, d, torch.zeros(n, device=o.device),
+           torch.full((n,), 1e30, device=o.device),
+           torch.full((n,), 1, dtype=torch.int32, device=o.device))
+    mkw = {"time": lane_times(n, np.random.default_rng(SEED + 53), o.device),
+           "has_motion": True}
+    return timed_cases({
+        "K2 closest render (glossy_deform)": _recorded_case(
+            "cluster_walk", rec["cluster_walk"], exactly(compare_hits)),
+        "K2 closest camera (glossy_deform)": (
+            lambda: wrapper("cluster_walk")(*cam, **mkw),
+            lambda: ci.intersect_clusters(*cam, **mkw), "cluster_walk",
+            exactly(compare_hits), lambda out: walk_bound(cam, mkw, out)),
+        "K3 surface render (glossy_deform)": _recorded_case(
+            "occlusion_walk", rec["occlusion_walk"],
+            exactly(compare_occlusion)),
+        "K4 closest render (glossy_deform tile)": _recorded_case(
+            "tile_walk", trec["tile_walk"],
+            in_scan_order(compare_hits, "tile_walk", rk4[:8], rk4[8],
+                          motion=rk4[10])),
+    }, n, card)
+
+
+def check_deform_dense(kg, static_kg, rng):
+    """Phase 54: K1's deform modes (closest, any, dual) against their
+    plain versions on cornell_deform's three-step path and on its last
+    step alone (a two-step path), on 65,536 random rays with mixed
+    visibility and a tenth of the windows empty, 65,536 camera rays and
+    the grazing set, each lane at a seeded time in [0, 1]: every output
+    to the bit; the counting variant's kept blocks equal block_keep's
+    mirror with the steps (ops/dense_sweep.py kept_blocks) on every lane;
+    then the time-0 check: every deform mode at time 0 equal to the
+    static sweep of the static box's triangles, to the bit. Returns max
+    |t| error per mode."""
+    from raytracingproject_tpu_torch.ops import dense_sweep as k1
+    ds = kg["dscene"]
+    tv, po, ov, bnd = dense_tables(kg, rng)
+    stv = static_kg["dscene"]["tri_verts_world"]
+    assert torch.equal(stv, tv)
+    dev = tv.device
+    side = int(round(N_CHECK ** 0.5))
+    kinds = np.array([1, 8, 16, 4, 128], np.int32)
+    errs = {k: 0.0 for k in ("dense_closest", "dense_any", "dense_dual")}
+    o, d = random_rays(N_CHECK, rng, dev)
+    ray_sets = [("random", o, d, torch.full((N_CHECK,), 1e-4, device=dev))]
+    o, d = camera_rays(kg, side, side, dev)
+    ray_sets.append(("camera", o, d, torch.zeros(o.shape[0], device=dev)))
+    ray_sets.append(("grazing", *k1.grazing_rays(tv, N_GRAZING, SEED + 54)))
+    paths = {"three-step": ds["tri_verts_world_steps"],
+             "two-step": ds["tri_verts_world_steps"][-1:].contiguous()}
+    for rays, o, d, tmin in ray_sets:
+        n = o.shape[0]
+        tm = lane_times(n, rng, dev)
+        empty = torch.tensor(rng.uniform(size=n) < (
+            0.1 if rays == "random" else 0.0), device=dev)
+        tmax = torch.where(empty, tmin, 1e30)
+        tmax_any = torch.tensor(
+            np.where(rng.uniform(size=n) < 0.5, rng.uniform(10, 800, n),
+                     1e30).astype(np.float32), device=dev)
+        tmax_c = torch.tensor(rng.uniform(10, 1000, n).astype(np.float32),
+                              device=dev)
+        vis = torch.tensor(kinds[rng.integers(0, 5, n)] if rays != "camera"
+                           else np.ones(n, np.int32), device=dev)
+        svis = torch.full((n,), 128, dtype=torch.int32, device=dev)
+        calls = {
+            "dense_closest": (tv, po, o, d, tmin, tmax, vis, ov),
+            "dense_any": (tv, po, o, d, tmin, tmax_any, svis, ov),
+            "dense_dual": (tv, po, bnd, o, d, tmin, tmax_c, tmax_any, vis,
+                           svis, ov),
+        }
+        for path, steps in paths.items():
+            kw = {"tri_verts_t1": steps, "time": tm}
+            for name, args in calls.items():
+                ref = dense_plain(name)(*args, **kw)
+                got = wrapper(name)(*args, **kw)
+                sync()
+                label = f"{name} cornell_deform {path} {rays}"
+                errs[name] = max(errs[name], DENSE_COMPARE[name](
+                    label, ref, got))
+                if path == "three-step":
+                    dense_count_phase(f"K1 {DENSE_MODE[name]} deform, {rays}",
+                                      name, {"args": args, "kw": kw})
+        zero = {"tri_verts_t1": paths["three-step"],
+                "time": torch.zeros(n, device=dev)}
+        for name, args in calls.items():
+            ref = wrapper(name)(*args)
+            got = wrapper(name)(*args, **zero)
+            sync()
+            DENSE_COMPARE[name](
+                f"{name} cornell_deform at time 0 vs the static sweep "
+                f"{rays}", ref, got)
+    return errs
+
+
+def deform_dense_main_path_checks(kg, card, rec, counts):
+    """Phase 57: K1's counting variant on the cornell_deform render's
+    recorded closest and any-hit inputs (kept blocks equal the mirror's,
+    with the steps), then each recorded call held against its plain
+    version (to the bit) and timed, with the bound of the tests it
+    ran."""
+    cases = {}
+    n = None
+    for name in ("dense_closest", "dense_any"):
+        r = rec[name]
+        a = inspect.signature(dense_plain(name)).bind(*r["args"],
+                                                      **r["kw"]).arguments
+        assert a.get("tri_verts_t1") is not None and a["time"] is not None, \
+            f"the recorded {name} call has no deform path"
+        n = a["o"].shape[0]
+        counts.setdefault(name, {})["cornell_deform render"] = \
+            dense_count_phase(f"K1 {DENSE_MODE[name]}, cornell_deform "
+                              "render (deform)", name, r)
+        args, kw = r["args"], r["kw"]
+        cases[f"K1 {DENSE_MODE[name]} render (cornell_deform)"] = (
+            lambda name=name, args=args, kw=kw: wrapper(name)(*args, **kw),
+            lambda name=name, args=args, kw=kw: dense_plain(name)(*args,
+                                                                  **kw),
+            name, DENSE_COMPARE[name],
+            lambda out, name=name, args=args, kw=kw: dense_bound(
+                name, args, kw, out),
+            lambda name=name, args=args, kw=kw: dense_counted_bound(
+                name, args, kw))
+    return timed_cases(cases, n, card)
+
+
+def deform_twin(path):
+    """(f64 image, f32 image, rmse gate, share gate) of a deforming
+    scene's twin: twice the JAX package's own float32 render's rmse
+    against its float64 one, and twice its share of pixels off by more
+    than 1e-3 or glossy's 0.07%, whichever is larger."""
+    pair = np.load(TWIN_DEFORM[path])
+    d32 = pair["f32_jax"] - pair["f64"]
+    rmse = float(np.sqrt(np.mean(d32 * d32)))
+    frac = float((np.abs(d32).sum(-1) > 1e-3).mean())
+    log(f"[accuracy] {path}: the JAX package's f32 render vs the twin: "
+        f"rmse {rmse:.3e}, pixels off >1e-3 {frac:.5f}")
+    return pair["f64"], pair["f32_jax"], 2.0 * rmse, max(2.0 * frac,
+                                                         TEX_FRAC_GATE)
+
+
 def merge(errs, new):
     """Keep the largest error per kernel."""
     for k, v in new.items():
@@ -2671,6 +3112,11 @@ def main():
     from raytracingproject_tpu_torch.app import examples
     from raytracingproject_tpu_torch.device import get_device
     dev = get_device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        log(f"[elapsed] {time.perf_counter() - t_start:.1f} s before {phase}")
+
     card = card_line()
     log(f"[env] card: {card}")
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2680,6 +3126,7 @@ def main():
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
+    mark("2. build")
     # ---- 2. build ----
     t0 = time.perf_counter()
     kernels.load()
@@ -2699,6 +3146,7 @@ def main():
         f"{native.build_info['seconds']:.2f} s")
     rng = np.random.default_rng(SEED)
 
+    mark("glossy_nee_mis")
     # ---- glossy_nee_mis: 3. kernel checks; 4. accuracy; 5. full width;
     # 6. main-path shapes ----
     scene = examples.cornell_box(512, 512, spp=64, spheres="glossy")
@@ -2722,6 +3170,7 @@ def main():
     g_times, e = glossy_main_path_checks(kg, 512, rng, card, g_rec)
     merge(errs, e)
 
+    mark("volume_sss")
     # ---- volume_sss: 7. kernel checks; 8. accuracy; 9. full width;
     # 10. main-path shapes ----
     vscene = examples.volume_sss_scene(256, 256, spp=32)
@@ -2745,6 +3194,7 @@ def main():
     v_times, e = volume_main_path_checks(vkg, 256, card, v_rec)
     merge(errs, e)
 
+    mark("big_instanced")
     # ---- big_instanced: 11. kernel checks; 12. accuracy; 13. full width;
     # 14. main-path shapes ----
     bscene = examples.instanced_scene(256, 256, spp=16, grid=8)
@@ -2771,6 +3221,7 @@ def main():
                                       counts=counts["cluster2_walk"])
     merge(errs, e)
 
+    mark("cornell_diffuse")
     # ---- cornell_diffuse: 15. kernel checks; 16. accuracy; 17. full
     # width; 18. main-path shapes ----
     cscene = examples.cornell_box(512, 512, spp=64)
@@ -2789,6 +3240,7 @@ def main():
     c_times, e = dense_main_path_checks(ckg, "cornell", 512 * 512, card, c_rec)
     merge(errs, e)
 
+    mark("volume_sss, dense dispatch")
     # ---- volume_sss, dense dispatch: 19. kernel checks; 20. accuracy; 21.
     # full width; 22. main-path shapes ----
     dkg = vscene.make_kernel_globals(dev)
@@ -2807,6 +3259,7 @@ def main():
                                         d_rec)
     merge(errs, e)
 
+    mark("big_instanced with pallas_onehot2")
     # ---- big_instanced with pallas_onehot2: 23. kernel checks; 24. full
     # width; 25. main-path shapes ----
     merge(errs, check_cluster2(bkg, N_CHECK, rng, "onehot2_walk"))
@@ -2824,6 +3277,7 @@ def main():
     o_times.update(k6_times)
     counts["onehot2_walk"].update(k6_counts)
 
+    mark("glossy_nee_mis, fused-NEE mode")
     # ---- glossy_nee_mis, fused-NEE mode: 26. kernel checks; 27. accuracy;
     # 28. full width; 29. main-path shapes ----
     merge(errs, check_dual(kg, N_CHECK, rng))
@@ -2841,14 +3295,17 @@ def main():
     f_times, e = fused_main_path_checks(kg, 512, card, f_rec["dual_walk"])
     merge(errs, e)
 
+    mark("30. the adaptive loop")
     # ---- 30. the adaptive loop ----
     merge(errs, adaptive_checks(dev, card))
 
+    mark("31. a single-level table at the cap")
     # ---- 31. a single-level table at the cap ----
     cap_times, e, cap_counts = cap_checks(dev, rng, card)
     merge(errs, e)
     counts["tile_walk"].update(cap_counts)
 
+    mark("dof_motion_adaptive")
     # ---- dof_motion_adaptive: 32. kernel checks; 33. accuracy; 34. full
     # width; 35. main-path shapes ----
     from raytracingproject_tpu_torch.app import cli
@@ -2890,6 +3347,7 @@ def main():
     merge(errs, e)
     dof_fixed_vs_adaptive(dev, card, x_kg)
 
+    mark("textured_instanced")
     # ---- textured_instanced: 36. kernel checks; 37. accuracy; 38. full
     # width; 39. main-path shapes ----
     tscene, tflags = cli.load_scene("example:textured_instanced")
@@ -2922,6 +3380,7 @@ def main():
     t_times, e = textured_main_path_checks(t_kg, card, t_rec, counts)
     merge(errs, e)
 
+    mark("instanced_scene(grid=5)")
     # ---- instanced_scene(grid=5), 599 clusters: 40. kernel checks; 41.
     # reduced render; 42. counts and times ----
     gscene = examples.instanced_scene(GRID5_SIZE, GRID5_SIZE, spp=GRID5_SPP,
@@ -2945,6 +3404,7 @@ def main():
     r_times, e = grid5_main_path_checks(r_kg, card, r_rec, cap_times)
     merge(errs, e)
 
+    mark("instanced_scene(grid=6)")
     # ---- instanced_scene(grid=6), 577 clusters with instance rows: 43.
     # compile and kernel checks; 44. accuracy; 45. full width; 46. counts
     # and times ----
@@ -2978,6 +3438,7 @@ def main():
     i_times, e = grid6_main_path_checks(i_kg, card, i_rec)
     merge(errs, e)
 
+    mark("instanced_scene(grid=5, nlat=15)")
     # ---- instanced_scene(grid=5, nlat=15), 401 clusters with instance
     # rows: 47. compile and kernel checks; 48. full width, unfused and
     # fused; 49. counts and times ----
@@ -3009,6 +3470,51 @@ def main():
                                            nf_rec["dual_walk"])
     merge(errs, e)
 
+    mark("glossy_deform")
+    # ---- glossy_deform (motion rows, 179 clusters x 15): 50. compile and
+    # kernel checks; 51. accuracy; 52. full width, the K2 and the K4
+    # dispatch; 53. counts and times ----
+    gd_kg = deform_compile("example:glossy_deform", dev, kg)
+    merge(errs, check_motion_walks(gd_kg, kg, rng))
+    twin, twin32, rmse_gate, frac_gate = deform_twin("glossy_deform")
+    accuracy(dev, "glossy_deform",
+             examples.glossy_deform_scene(64, 64, spp=128), {}, rmse_gate,
+             frac_gate, twin=twin, twin_f32=twin32)
+    gd_launch, gd_rec, gd_st = full_width(
+        card, "example:glossy_deform", DEFORM_SIZE, DEFORM_SPP,
+        JAX_MEAN_GLOSSY_DEFORM_256, 0.005, ("cluster_walk", "occlusion_walk"),
+        chunk=DEFORM_CHUNK)
+    assert {k for k, v in gd_launch.items() if v} == {
+        "cluster_walk", "occlusion_walk"}, "glossy_deform: another walk"
+    gt_launch, gt_rec, gt_st = full_width(
+        card, "example:glossy_deform:tile", DEFORM_SIZE, DEFORM_SPP,
+        JAX_MEAN_GLOSSY_DEFORM_256, 0.005, ("tile_walk", "occlusion_walk"),
+        chunk=DEFORM_CHUNK)
+    assert {k for k, v in gt_launch.items() if v} == {
+        "tile_walk", "occlusion_walk"}, "glossy_deform:tile: another walk"
+    gd_times, e = glossy_deform_main_path_checks(gd_kg, card, gd_rec, gt_rec,
+                                                 counts)
+    merge(errs, e)
+
+    mark("cornell_deform")
+    # ---- cornell_deform (a three-step path on the dense sweep): 54.
+    # compile and kernel checks; 55. accuracy; 56. full width; 57. counts
+    # and times ----
+    cd_kg = deform_compile("example:cornell_deform", dev, ckg)
+    merge(errs, check_deform_dense(cd_kg, ckg, rng))
+    twin, twin32, rmse_gate, frac_gate = deform_twin("cornell_deform")
+    accuracy(dev, "cornell_deform",
+             examples.cornell_deform_scene(64, 64, spp=128), {}, rmse_gate,
+             frac_gate, twin=twin, twin_f32=twin32)
+    cd_launch, cd_rec, cd_st = full_width(
+        card, "example:cornell_deform", DEFORM_SIZE, DEFORM_SPP,
+        JAX_MEAN_CORNELL_DEFORM_256, 0.005, ("dense_closest", "dense_any"),
+        chunk=DEFORM_CHUNK)
+    assert {k for k, v in cd_launch.items() if v} == {
+        "dense_closest", "dense_any"}, "cornell_deform: another kernel"
+    cd_times, e = deform_dense_main_path_checks(cd_kg, card, cd_rec, counts)
+    merge(errs, e)
+
     paths = {"glossy_nee_mis": (g_launch, g_st), "volume_sss": (v_launch, v_st),
              "big_instanced": (b_launch, b_st),
              "cornell_diffuse": (c_launch, c_st),
@@ -3021,7 +3527,10 @@ def main():
              "instanced_grid5": (r_launch, r_st),
              "instanced_grid6": (i_launch, i_st),
              "instanced_grid5_nlat15": (n_launch, n_st),
-             "instanced_grid5_nlat15_fused": (nf_launch, nf_st)}
+             "instanced_grid5_nlat15_fused": (nf_launch, nf_st),
+             "glossy_deform": (gd_launch, gd_st),
+             "glossy_deform_tile": (gt_launch, gt_st),
+             "cornell_deform": (cd_launch, cd_st)}
     by_path = {name: {path: launch[name]
                       for path, (launch, _st) in paths.items()}
                for name in WRAPPERS}
@@ -3030,7 +3539,7 @@ def main():
         for path, (_l, st) in paths.items()) + f" ({card})")
     times = {**g_times, **v_times, **b_times, **c_times, **d_times,
              **o_times, **f_times, **cap_times, **x_times, **t_times,
-             **r_times, **i_times, **n_times}
+             **r_times, **i_times, **n_times, **gd_times, **cd_times}
     # kernel, source, the TPU kernel's pallas_call, its timed case, the
     # prefix of its other cases
     k1 = ("dense_sweep", "pallas_intersect.py:156")
@@ -3080,6 +3589,21 @@ def main():
                 "launches": n_inst, "timed_case": tc, "ms": ti["ms"],
                 "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
                 "bound_by": ti["bound_by"], "lanes": ti["lanes"]}
+        if name in MOTION_CASES:
+            # the motion mode (motion rows, K1's deform modes): its
+            # launches on the deforming paths and its time on its own
+            # recorded input
+            tc = MOTION_CASES[name]
+            ti = times[tc]
+            n_mot = sum(by_path[name][p] for p in MOTION_PATHS)
+            assert n_mot > 0, f"{name}: no launch with motion"
+            kern[-1]["motion"] = {
+                "launches": n_mot, "timed_case": tc, "ms": ti["ms"],
+                "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
+                "bound_by": ti["bound_by"], "lanes": ti["lanes"]}
+            if "counted_bound_ms" in ti:
+                kern[-1]["motion"]["counted_bound_ms"] = \
+                    ti["counted_bound_ms"]
         if name in counts:
             kern[-1]["counts"] = counts[name]
     # K1's fourth mode computes the TPU kernel's own Moeller-Trumbore

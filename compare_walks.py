@@ -148,9 +148,14 @@ def launch(fn, src, inp, counts=None):
         argv = [ptr["cbounds"], ptr["ctable"], c, w, int(a["cluster_tris"]),
                 *ray,
                 n, int(inp["any_hit"]), *res]
-        if len(fn.argtypes) == len(argv) + 3:
+        extra = len(fn.argtypes) - len(argv) - 2   # past counts, stream
+        if extra >= 1:
             # a tree whose K4 takes instance rows: a flag after any_hit
             argv.insert(12, int(bool(a.get("has_instances", False))))
+        if extra == 3:
+            # ... and motion rows: a flag and the lanes' times
+            mot = bool(a.get("has_motion", False))
+            argv[13:13] = [int(mot), ptr["time"] if mot else None]
     else:
         argv = [ptr["sc_bounds"], ptr["cbounds"], ptr["ctable"],
                 a["sc_bounds"].shape[0], c, w, int(a["cluster_tris"]),

@@ -16,6 +16,10 @@
       --chunk 32 --device cuda
   python -m raytracingproject_tpu_torch \\
       example:instanced_grid5_nlat15[:fused] --chunk 32 --device cuda
+  python -m raytracingproject_tpu_torch example:glossy_deform[:tile] \\
+      --chunk 32 --device cuda
+  python -m raytracingproject_tpu_torch example:cornell_deform \\
+      --chunk 32 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
@@ -49,6 +53,12 @@ so the sphere stays instanced in a single-level table of 577 clusters x
 shadow test). example:instanced_grid5_nlat15 is instanced_scene(grid=5,
 nlat=15) alike (25 spheres of 672 triangles, 401 clusters x 48: K2 and
 K3); with :fused it renders in fused-NEE mode (examples.FUSED_NEE: K7).
+example:glossy_deform is the glossy box with its mirror sphere deforming
+over the shutter (256x256, 64 spp; motion cluster rows, 179 clusters x
+15: K2 for the closest hit, K3 for the shadow test, both at each ray's
+time); with :tile the closest hit takes K4 (examples.GLOSSY_DEFORM_TILE).
+example:cornell_deform is the Cornell box with its short box on a
+three-step path (36 prims: K1's deform modes).
 """
 
 from __future__ import annotations
@@ -72,7 +82,9 @@ def build_parser():
                    "'example:dof_motion' | "
                    "'example:textured_instanced' | "
                    "'example:instanced_grid6' | "
-                   "'example:instanced_grid5_nlat15[:fused]'")
+                   "'example:instanced_grid5_nlat15[:fused]' | "
+                   "'example:glossy_deform[:tile]' | "
+                   "'example:cornell_deform'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -107,6 +119,12 @@ def load_scene(spec):
             and parts[2:] in ([], ["fused"]):
         return (examples.instanced_scene(256, 256, spp=64, grid=5, nlat=15),
                 examples.FUSED_NEE if parts[2:] else {})
+    if parts[:2] == ["example", "glossy_deform"] \
+            and parts[2:] in ([], ["tile"]):
+        return (examples.glossy_deform_scene(256, 256, spp=64),
+                examples.GLOSSY_DEFORM_TILE if parts[2:] else {})
+    if parts == ["example", "cornell_deform"]:
+        return examples.cornell_deform_scene(256, 256, spp=64), {}
     if parts == ["example", "cornell", "glossy", "fused"]:
         return examples.cornell_box(spheres="glossy"), examples.GLOSSY_FUSED
     if parts[:2] != ["example", "cornell"] or len(parts) > 3:
@@ -114,8 +132,10 @@ def load_scene(spec):
                          "example:cornell:glossy[:fused], "
                          "example:volume_sss, example:big_instanced, "
                          "example:dof_motion, example:textured_instanced, "
-                         "example:instanced_grid6 or "
-                         "example:instanced_grid5_nlat15[:fused])")
+                         "example:instanced_grid6, "
+                         "example:instanced_grid5_nlat15[:fused], "
+                         "example:glossy_deform[:tile] or "
+                         "example:cornell_deform)")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})
 

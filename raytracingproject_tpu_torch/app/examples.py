@@ -13,7 +13,11 @@ six-bladed lens by a moving camera, rendered with adaptive sampling) and
 image-textured sphere on a checkered ground plane under a distant sun and
 a constant sky; at its default grid=4 the textured_instanced
 configuration, 16 of them compiled flattened; at grid=6, and at grid=5
-with nlat=15, instanced with single-level tables). Variants that need
+with nlat=15, instanced with single-level tables), and the two deforming
+scenes: `glossy_deform_scene` (the glossy box whose mirror sphere grows
+and moves over the shutter: motion cluster rows, K2 and K3) and
+`cornell_deform_scene` (the Cornell box whose short box rises and slides
+on a three-step path: the dense sweep K1's deform modes). Variants that need
 unported features (glass spheres, an area lamp) raise
 NotImplementedError.
 
@@ -25,7 +29,9 @@ occlusion walk (K3); without them its 1,008 prims select the dense sweep
 two-level scene into the per-lane inner walk (K6) in place of K5.
 FUSED_NEE opts a scene into fused-NEE mode: one union walk (K7) per
 bounce answers the shadow test and the next closest hit; GLOSSY_FUSED is
-it for the glossy Cornell box.
+it for the glossy Cornell box. GLOSSY_DEFORM_TILE sends glossy_deform's
+closest hits to the tile-shared walk (K4) in place of K2, the JAX
+package's dispatch without its one-hot tables.
 """
 
 from __future__ import annotations
@@ -188,6 +194,52 @@ VOLUME_SSS_DISPATCH = {"use_brute": False, "pallas_clusters": True,
 BIG_INSTANCED_ONEHOT2 = {"pallas_onehot2": True}
 FUSED_NEE = {"fused_nee": True}
 GLOSSY_FUSED = FUSED_NEE
+GLOSSY_DEFORM_TILE = {"pallas_onehot": False}
+
+
+def find_mesh(scene, name):
+    """The geometry of the scene's object called `name`."""
+    return next(o.geometry for o in scene.objects if o.name == name)
+
+
+def glossy_deform_path(verts):
+    """The mirror sphere's shutter-close vertices: scaled by 1.2 about
+    its centre (185, 170, 90), then moved by (60, 0, 30) (float32)."""
+    c = np.array([185.0, 170.0, 90.0], np.float32)
+    return ((verts - c) * np.float32(1.2) + c
+            + np.array([60.0, 0.0, 30.0], np.float32)).astype(np.float32)
+
+
+def cornell_deform_path(verts):
+    """The short box's three-step path after shutter open, (2, V, 3):
+    raised by 80 at mid-shutter, then moved by 60 along x at close."""
+    return np.stack([verts + np.array([0.0, 0.0, 80.0], np.float32),
+                     verts + np.array([60.0, 0.0, 0.0], np.float32)]
+                    ).astype(np.float32)
+
+
+def glossy_deform_scene(width=256, height=256, spp=64):
+    """The glossy Cornell box (1,932 prims) with its mirror sphere
+    deforming over the shutter (a two-step path, glossy_deform_path): the
+    host compile packs motion cluster rows, 179 clusters x 15; K2 for
+    every closest hit, K3 for every shadow test."""
+    scene = cornell_box(width, height, spp, spheres="glossy")
+    mesh = find_mesh(scene, "sphere1")
+    mesh.attribute_set("std_motion_vertex_position", "vertex",
+                       glossy_deform_path(mesh.verts_array))
+    return scene
+
+
+def cornell_deform_scene(width=256, height=256, spp=64):
+    """The Cornell box with its two boxes (36 prims), the short box on
+    a three-step path (cornell_deform_path): deform_steps 3, no cluster
+    tables, the dense sweep K1 with the hat-weighted two-segment lerp for
+    every closest hit and shadow test."""
+    scene = cornell_box(width, height, spp)
+    mesh = find_mesh(scene, "short_box")
+    mesh.attribute_set("std_motion_vertex_position", "vertex",
+                       cornell_deform_path(mesh.verts_array))
+    return scene
 
 
 def volume_sss_scene(width=256, height=256, spp=32, density=0.004):

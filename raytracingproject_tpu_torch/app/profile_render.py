@@ -4,7 +4,8 @@
         [--scene glossy|glossy_fused|volume_sss|big_instanced|cornell|
                  volume_sss_dense|big_instanced_onehot2|dof_motion|
                  textured_instanced|instanced_grid6|instanced_grid5_nlat15|
-                 instanced_grid5_nlat15_fused]
+                 instanced_grid5_nlat15_fused|glossy_deform|
+                 glossy_deform_tile|cornell_deform]
         [--device cuda]
         [--out profile.json]
 
@@ -32,7 +33,11 @@ triangles) through K2 and K3; `instanced_grid6` is example:instanced_grid6
 at 256x256 (577 clusters x 38 triangles with instance rows) through K4
 and K3, `instanced_grid5_nlat15` example:instanced_grid5_nlat15 (401 x
 48 with instance rows) through K2 and K3, `instanced_grid5_nlat15_fused`
-the same in fused-NEE mode through K7.
+the same in fused-NEE mode through K7; `glossy_deform` is
+example:glossy_deform at 256x256 (motion cluster rows, 179 x 15) through
+K2 and K3, `glossy_deform_tile` the same through K4 and K3, and
+`cornell_deform` example:cornell_deform at 256x256 (36 prims on a
+three-step path) through K1's deform modes, closest and any hit.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
@@ -61,6 +66,9 @@ import time
 import torch
 
 K3_KERNEL = "occlusion_walk_kernel"
+# K1's modes are one template, dense_kernel<MODE, ...>
+K1_CLOSEST, K1_ANY, K1_DUAL = ("dense_kernel<0", "dense_kernel<1",
+                               "dense_kernel<2")
 TOP = 12   # device kernels listed, by total time
 # scene -> (example spec, width, closest-hit walk module, its kernel name,
 # the walk's calls per wavefront iteration, the shadow-test kernel where
@@ -81,10 +89,10 @@ SCENES = {
     "big_instanced_onehot2": ("example:big_instanced:onehot2", 256,
                               "onehot2_walk", "onehot2_walk_kernel", 2, None,
                               0),
-    "cornell": ("example:cornell", 512, "dense_sweep",
-                "dense_closest_kernel", 1, "dense_any_kernel", 0),
+    "cornell": ("example:cornell", 512, "dense_sweep", K1_CLOSEST, 1,
+                K1_ANY, 0),
     "volume_sss_dense": ("example:volume_sss:dense", 256, "dense_sweep",
-                         "dense_closest_kernel", 1, "dense_dual_kernel", 0),
+                         K1_CLOSEST, 1, K1_DUAL, 0),
     "dof_motion": ("example:dof_motion", 256, "cluster_walk",
                    "cluster_walk_kernel", 1, K3_KERNEL, 0),
     "textured_instanced": ("example:textured_instanced", 256,
@@ -98,6 +106,12 @@ SCENES = {
     "instanced_grid5_nlat15_fused": ("example:instanced_grid5_nlat15:fused",
                                      256, "dual_walk", "dual_walk_kernel", 1,
                                      None, 1),
+    "glossy_deform": ("example:glossy_deform", 256, "cluster_walk",
+                      "cluster_walk_kernel", 1, K3_KERNEL, 0),
+    "glossy_deform_tile": ("example:glossy_deform:tile", 256, "tile_walk",
+                           "tile_walk_kernel", 1, K3_KERNEL, 0),
+    "cornell_deform": ("example:cornell_deform", 256, "dense_sweep",
+                       K1_CLOSEST, 1, K1_ANY, 0),
 }
 
 

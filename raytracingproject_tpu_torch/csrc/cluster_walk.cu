@@ -3,8 +3,8 @@
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_onehot.py:969
 // intersect_clusters_onehot / _onehot_kernel (:145). Same contract as the
 // plain walk ops/cluster_intersect.py intersect_clusters (single-level
-// cluster tables, C <= 512, with or without instance rows; no motion
-// rows).
+// cluster tables, C <= 512, with instance rows or motion rows or
+// neither).
 //
 // What bounds it on the H100: per-lane latency, not bytes. A lane's visits
 // are serial, and each reads one 193-float row (at 15 triangles) that
@@ -45,6 +45,16 @@
 // ones it used last (an instance's clusters share them); t stays in world
 // units.
 //
+// Motion rows (MOT; the TPU kernel's has_motion branch, :277): each
+// triangle's shutter deltas follow the row's triangles, and the prim,
+// object and visibility columns start at 13 + 18 ct (watertight.cuh
+// rt_prim_col). Boxes cover both shutter ends, so the keys, the cull and
+// the visit order do not change; a lane tests each triangle of a popped
+// row lerped to its time, v + time * dv per component, the plain
+// version's order. Motion rows never carry instances (the JAX package
+// packs no cluster table for moving instances): the entry point refuses
+// the two together.
+//
 // The counting variant (COUNT) also writes per lane the rows it tested and
 // the boxes it tested, into counts[2 * lane].
 //
@@ -53,20 +63,21 @@
 // exact, and such keys are never retired by a non-negative key's cull.
 //
 // Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 72 registers, no
-// spills, in both variants; with instance rows 88 and 89; chip_smoke.py
-// prints the build log.
+// spills, in both variants; with instance rows 88 and 89; motion rows:
+// PERF.md section 6; chip_smoke.py prints the build log.
 #include "watertight.cuh"
 
 // Queue length: the counts (PERF.md) give p99 4 visits a lane on glossy's
 // render input, so one pass serves nearly every lane.
 #define K2_QUEUE 8
 
-template <int Q, bool COUNT, bool INST>
+template <int Q, bool COUNT, bool INST, bool MOT>
 __global__ void cluster_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ tmin_a,
-    const float* __restrict__ tmax_a, const int* __restrict__ vis_a, int n,
+    const float* __restrict__ tmax_a, const int* __restrict__ vis_a,
+    const float* __restrict__ time_a, int n,
     int any_hit, float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ obj_out, int* __restrict__ counts) {
@@ -80,6 +91,7 @@ __global__ void cluster_walk_kernel(
     const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
     const float tmin = tmin_a[i], tmax = tmax_a[i];
     const int vis = vis_a[i];
+    const float tm = MOT ? time_a[i] : 0.0f;
     WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
     W2oCache wc;  // the w2o bits w was last built from (INST)
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
@@ -87,7 +99,7 @@ __global__ void cluster_walk_kernel(
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
     int bp = -1, bo = -1;
     int rows = 0, passes = 0;
-    const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
+    const int pbase = rt_prim_col(ct, MOT), obase = pbase + ct,
               vbase = pbase + 2 * ct;
     long long last = -1;  // packed key of the last visited cluster
     bool more = true;     // a live key may lie beyond the queue
@@ -139,8 +151,13 @@ __global__ void cluster_walk_kernel(
                 if (!(pid >= 0.0f)) continue;
                 if (((int)__ldg(row + vbase + k) & vis) == 0) continue;
                 float t, u, v;
-                if (wt_tri(w, row + RT_META_COLS + 9 * k, tmin, bt, &t, &u,
-                           &v)) {
+                const bool hit =
+                    MOT ? wt_tri_at<true>(w, row + RT_META_COLS + 9 * k,
+                                          row + RT_META_COLS + 9 * (ct + k),
+                                          tm, tmin, bt, &t, &u, &v)
+                        : wt_tri(w, row + RT_META_COLS + 9 * k, tmin, bt, &t,
+                                 &u, &v);
+                if (hit) {
                     bt = t;
                     bp = (int)pid;
                     bu = u;
@@ -166,33 +183,39 @@ __global__ void cluster_walk_kernel(
     }
 }
 
-template <bool COUNT, bool INST>
+template <bool COUNT, bool INST, bool MOT>
 static void launch(int grid, int block, size_t smem, cudaStream_t stream,
                    const float* cbounds, const float* ctable, int C, int W,
                    int ct, const float* o, const float* d, const float* tmin,
-                   const float* tmax, const int* vis, int n, int any_hit,
-                   float* t, int* prim, float* u, float* v, int* obj,
-                   int* counts) {
-    cluster_walk_kernel<K2_QUEUE, COUNT, INST><<<grid, block, smem, stream>>>(
-        cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
-        u, v, obj, counts);
+                   const float* tmax, const int* vis, const float* time,
+                   int n, int any_hit, float* t, int* prim, float* u,
+                   float* v, int* obj, int* counts) {
+    cluster_walk_kernel<K2_QUEUE, COUNT, INST, MOT>
+        <<<grid, block, smem, stream>>>(cbounds, ctable, C, W, ct, o, d, tmin,
+                                        tmax, vis, time, n, any_hit, t, prim,
+                                        u, v, obj, counts);
 }
 
 extern "C" int rt_cluster_walk(const float* cbounds, const float* ctable,
                                int C, int W, int ct, const float* o,
                                const float* d, const float* tmin,
                                const float* tmax, const int* vis, int n,
-                               int any_hit, int instances, float* t,
-                               int* prim, float* u, float* v, int* obj,
-                               int* counts, void* stream) {
+                               int any_hit, int instances, int motion,
+                               const float* time, float* t, int* prim,
+                               float* u, float* v, int* obj, int* counts,
+                               void* stream) {
     if (n <= 0) return 0;
+    if (instances && motion) return (int)cudaErrorInvalidValue;
     const int block = 128;
     const int grid = (n + block - 1) / block;
     const size_t smem = (size_t)C * 6 * sizeof(float);
-    auto* fn = counts
-                   ? (instances ? launch<true, true> : launch<true, false>)
-                   : (instances ? launch<false, true> : launch<false, false>);
+    auto* fn = counts ? (instances ? launch<true, true, false>
+                                   : motion ? launch<true, false, true>
+                                            : launch<true, false, false>)
+                      : (instances ? launch<false, true, false>
+                                   : motion ? launch<false, false, true>
+                                            : launch<false, false, false>);
     fn(grid, block, smem, (cudaStream_t)stream, cbounds, ctable, C, W, ct, o,
-       d, tmin, tmax, vis, n, any_hit, t, prim, u, v, obj, counts);
+       d, tmin, tmax, vis, time, n, any_hit, t, prim, u, v, obj, counts);
     return (int)cudaGetLastError();
 }

@@ -104,6 +104,27 @@
 // rays nearly along their edges (ops/dense_sweep.py edge_rays), where a
 // line test with a pad of a few ulps drops hits.
 //
+// Deform modes (DEF; the JAX package's dense sweeps with tri_verts_t1 and
+// time, ops/intersect.py _motion_components): every triangle moves on a
+// piecewise-linear path of S1 uniform segments over the shutter, given as
+// its positions at the S1 steps after shutter open, and each lane tests
+// the triangles where they are at its time. Staging keeps a triangle's
+// v0, e1 = tv1 - v0, e2 = tv2 - v0 (in place of its corners) and, in
+// dynamic shared memory, the per-segment deltas of those nine numbers
+// (step g's minus step g - 1's, the plain version's operations); a lane
+// sums them with the hat weights w_g = clip(time S1 - g, 0, 1) (time
+// itself for one segment), segment by segment, v + w_g dv_g, and rebuilds
+// the corners as v0 + e before the test. The cull keeps only its box part:
+// the block's boxes are taken over the corners of every step, and a block
+// is kept where the bound on t meets (tmin, gate) and the line meets the
+// wide box. Both hold for a moving triangle as for a static one (they
+// need only that its corners lie in the narrow box, which holds up to the
+// rounding of the lerp, a few ulps against the pad of ~250). The edge-on
+// test takes its bounds from one triangle's normal and area, which change
+// as the triangle moves, so it is not used: a lane keeps every block whose
+// wide box its line meets. ops/dense_sweep.py block_keep takes the steps
+// and computes the same predicate.
+//
 // The counting variant (COUNT) also writes per lane the triangles it
 // tested, the blocks it kept and, for the lane's warp in its round, the
 // blocks that any lane of the warp kept, into counts[3 * lane].
@@ -143,13 +164,19 @@
 #define C3 32.0f
 #define EPS_E 1e-6f
 #define RT_INFTY __int_as_float(0x7f800000)
+// deform modes: segments of a path whose deltas the stage holds (the
+// dynamic shared memory, STAGE x 9 x S1 floats, stays within a block's
+// 227 KB beside the static part)
+#define MAX_SEGMENTS 20
 
 enum { MODE_CLOSEST = 0, MODE_ANY = 1, MODE_DUAL = 2 };
 
 struct StagedTris {
-    float c[STAGE][9];           // corners v0, v1, v2
-    float nrm[STAGE][3];         // unit normals (0 for a degenerate one)
+    float c[STAGE][9];           // corners v0, v1, v2 (DEF: v0, e1, e2)
+    float nrm[STAGE][3];         // unit normals (0 for a degenerate one;
+                                 // DEF: the low corner of its shutter box)
     float abg[STAGE][3];         // alpha, beta, gamma of the edge-on test
+                                 // (DEF: the high corner of its box)
     int obj[STAGE];              // prim_object (-1: never hit)
     int vis[STAGE];              // object_visibility[object]
     int bnd[STAGE];              // volume-boundary flag
@@ -164,12 +191,26 @@ static __device__ __forceinline__ float dot3(float ax, float ay, float az,
     return (ax * bx + ay * by) + az * bz;
 }
 
+// The paths of the deform modes: steps (S1, P, 3, 3), the triangles at
+// the S1 uniform steps after shutter open; dl the stage's deltas in
+// dynamic shared memory, 9 floats a (triangle, segment).
+struct DeformPath {
+    const float* steps;
+    int S1;
+    int P;
+    float* dl;
+};
+
 // Stage triangles [base, base + count) and their blocks' boxes and
-// edge-on data; ends with the stage visible to the whole block.
+// edge-on data (DEF: the triangles' v0, e1, e2, their segment deltas and
+// their boxes over every step); ends with the stage visible to the whole
+// block.
+template <bool DEF>
 static __device__ __forceinline__ void stage_tris(
     StagedTris& s, const float* __restrict__ tri_verts,
     const int* __restrict__ prim_object, const int* __restrict__ obj_vis,
-    const unsigned char* __restrict__ boundary, int base, int count) {
+    const unsigned char* __restrict__ boundary, int base, int count,
+    const DeformPath& dp) {
     __syncthreads();  // every thread is done with the previous stage
     for (int k = threadIdx.x; k < count; k += blockDim.x) {
         const float* tv = tri_verts + (size_t)(base + k) * 9;
@@ -180,26 +221,61 @@ static __device__ __forceinline__ void stage_tris(
             c[3 + j] = v0 + (__ldg(tv + 3 + j) - v0);
             c[6 + j] = v0 + (__ldg(tv + 6 + j) - v0);
         }
-        for (int j = 0; j < 9; ++j) s.c[k][j] = c[j];
-        const float e1x = c[3] - c[0], e1y = c[4] - c[1], e1z = c[5] - c[2];
-        const float e2x = c[6] - c[0], e2y = c[7] - c[1], e2z = c[8] - c[2];
-        const float e3x = c[6] - c[3], e3y = c[7] - c[4], e3z = c[8] - c[5];
-        const float cx = e1y * e2z - e1z * e2y;
-        const float cy = e1z * e2x - e1x * e2z;
-        const float cz = e1x * e2y - e1y * e2x;
-        const float nl = sqrtf(dot3(cx, cy, cz, cx, cy, cz));
-        const float dm = fmaxf(fmaxf(dot3(e1x, e1y, e1z, e1x, e1y, e1z),
-                                     dot3(e2x, e2y, e2z, e2x, e2y, e2z)),
-                               dot3(e3x, e3y, e3z, e3x, e3y, e3z));
-        const float a2 = nl - GEO_REL * dm;
-        const bool ok = a2 > 0.0f;
-        const float inv = 1.0f / a2;
-        s.abg[k][0] = ok ? dm * inv : RT_INFTY;
-        s.abg[k][1] = ok ? sqrtf(dm) * inv : RT_INFTY;
-        s.abg[k][2] = ok ? inv : RT_INFTY;
-        s.nrm[k][0] = nl > 0.0f ? cx / nl : 0.0f;
-        s.nrm[k][1] = nl > 0.0f ? cy / nl : 0.0f;
-        s.nrm[k][2] = nl > 0.0f ? cz / nl : 0.0f;
+        if (DEF) {
+            float prev[9], lo[3], hi[3];
+            for (int j = 0; j < 3; ++j) {
+                prev[j] = c[j];
+                prev[3 + j] = __ldg(tv + 3 + j) - c[j];
+                prev[6 + j] = __ldg(tv + 6 + j) - c[j];
+                lo[j] = fminf(fminf(c[j], c[3 + j]), c[6 + j]);
+                hi[j] = fmaxf(fmaxf(c[j], c[3 + j]), c[6 + j]);
+            }
+            for (int j = 0; j < 9; ++j) s.c[k][j] = prev[j];
+            for (int g = 0; g < dp.S1; ++g) {
+                const float* sv =
+                    dp.steps + ((size_t)g * dp.P + base + k) * 9;
+                float* dg = dp.dl + (size_t)(k * dp.S1 + g) * 9;
+                for (int j = 0; j < 3; ++j) {
+                    const float v0 = __ldg(sv + j);
+                    const float e1 = __ldg(sv + 3 + j) - v0;
+                    const float e2 = __ldg(sv + 6 + j) - v0;
+                    const float c1 = v0 + e1, c2 = v0 + e2;
+                    lo[j] = fminf(lo[j], fminf(fminf(v0, c1), c2));
+                    hi[j] = fmaxf(hi[j], fmaxf(fmaxf(v0, c1), c2));
+                    dg[j] = v0 - prev[j];
+                    dg[3 + j] = e1 - prev[3 + j];
+                    dg[6 + j] = e2 - prev[6 + j];
+                    prev[j] = v0;
+                    prev[3 + j] = e1;
+                    prev[6 + j] = e2;
+                }
+            }
+            for (int j = 0; j < 3; ++j) {
+                s.nrm[k][j] = lo[j];
+                s.abg[k][j] = hi[j];
+            }
+        } else {
+            for (int j = 0; j < 9; ++j) s.c[k][j] = c[j];
+            const float e1x = c[3] - c[0], e1y = c[4] - c[1], e1z = c[5] - c[2];
+            const float e2x = c[6] - c[0], e2y = c[7] - c[1], e2z = c[8] - c[2];
+            const float e3x = c[6] - c[3], e3y = c[7] - c[4], e3z = c[8] - c[5];
+            const float cx = e1y * e2z - e1z * e2y;
+            const float cy = e1z * e2x - e1x * e2z;
+            const float cz = e1x * e2y - e1y * e2x;
+            const float nl = sqrtf(dot3(cx, cy, cz, cx, cy, cz));
+            const float dm = fmaxf(fmaxf(dot3(e1x, e1y, e1z, e1x, e1y, e1z),
+                                         dot3(e2x, e2y, e2z, e2x, e2y, e2z)),
+                                   dot3(e3x, e3y, e3z, e3x, e3y, e3z));
+            const float a2 = nl - GEO_REL * dm;
+            const bool ok = a2 > 0.0f;
+            const float inv = 1.0f / a2;
+            s.abg[k][0] = ok ? dm * inv : RT_INFTY;
+            s.abg[k][1] = ok ? sqrtf(dm) * inv : RT_INFTY;
+            s.abg[k][2] = ok ? inv : RT_INFTY;
+            s.nrm[k][0] = nl > 0.0f ? cx / nl : 0.0f;
+            s.nrm[k][1] = nl > 0.0f ? cy / nl : 0.0f;
+            s.nrm[k][2] = nl > 0.0f ? cz / nl : 0.0f;
+        }
         const int ob = __ldg(prim_object + base + k);
         s.obj[k] = ob;
         s.vis[k] = obj_vis ? __ldg(obj_vis + (ob > 0 ? ob : 0)) : 0;
@@ -214,14 +290,22 @@ static __device__ __forceinline__ void stage_tris(
         int bv = 0;
         const int kend = min(b * TRI_BLOCK + TRI_BLOCK, count);
         for (int k = b * TRI_BLOCK; k < kend; ++k) {
+            if (DEF) {
 #pragma unroll
-            for (int j = 0; j < 9; ++j) {
-                lo[j % 3] = fminf(lo[j % 3], s.c[k][j]);
-                hi[j % 3] = fmaxf(hi[j % 3], s.c[k][j]);
+                for (int j = 0; j < 3; ++j) {
+                    lo[j] = fminf(lo[j], s.nrm[k][j]);
+                    hi[j] = fmaxf(hi[j], s.abg[k][j]);
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < 9; ++j) {
+                    lo[j % 3] = fminf(lo[j % 3], s.c[k][j]);
+                    hi[j % 3] = fmaxf(hi[j % 3], s.c[k][j]);
+                }
+                al = fmaxf(al, s.abg[k][0]);
+                be = fmaxf(be, s.abg[k][1]);
+                ga = fmaxf(ga, s.abg[k][2]);
             }
-            al = fmaxf(al, s.abg[k][0]);
-            be = fmaxf(be, s.abg[k][1]);
-            ga = fmaxf(ga, s.abg[k][2]);
             bv |= s.vis[k];
         }
         const float m = fmaxf(fmaxf(fmaxf(fabsf(lo[0]), fabsf(lo[1])),
@@ -289,7 +373,8 @@ static __device__ __forceinline__ bool line_meets(const float* b,
 }
 
 // Whether block b of the stage can hold a triangle that the watertight
-// test hits with tmin < t < gate (see the header).
+// test hits with tmin < t < gate (see the header; DEF: the box part).
+template <bool DEF>
 static __device__ __forceinline__ bool keep_block(const StagedTris& s, int b,
                                                   int count,
                                                   const CullRay& r,
@@ -305,6 +390,7 @@ static __device__ __forceinline__ bool keep_block(const StagedTris& s, int b,
     if (!(lower < gate && upper > r.tmin)) return false;
     if (n_ok) return true;  // the wide box holds the narrow one
     if (!line_meets(s.wbox[b], r, n, f)) return false;
+    if (DEF) return true;  // no edge-on bound for a moving triangle
     // edge-on: |normal . d| < (K + (B + G E) E) |d| for one triangle
     const float e = EPS_E * (s.geo[b][3] + r.mo);
     const float thr =
@@ -345,9 +431,48 @@ static __device__ __forceinline__ WtRay shfl_ray(const WtRay& w, int src) {
     return r;
 }
 
-#define CORNERS(s, k)                                                        \
-    s.c[k][0], s.c[k][1], s.c[k][2], s.c[k][3], s.c[k][4], s.c[k][5],       \
-        s.c[k][6], s.c[k][7], s.c[k][8]
+// The corners of staged triangle k for a lane of time tm, into c: the
+// staged corners, or (DEF) its v0, e1, e2 moved segment by segment,
+// v + w_g dv_g, then v0, v0 + e1, v0 + e2.
+template <bool DEF>
+static __device__ __forceinline__ void tri_corners(const StagedTris& s,
+                                                   const DeformPath& dp,
+                                                   int k, float tm,
+                                                   float* c) {
+    if (!DEF) {
+#pragma unroll
+        for (int j = 0; j < 9; ++j) c[j] = s.c[k][j];
+        return;
+    }
+    float x[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) x[j] = s.c[k][j];
+    for (int g = 0; g < dp.S1; ++g) {
+        const float w =
+            dp.S1 == 1 ? tm
+                       : fminf(fmaxf(tm * (float)dp.S1 - (float)g, 0.0f),
+                               1.0f);
+        const float* dg = dp.dl + (size_t)(k * dp.S1 + g) * 9;
+#pragma unroll
+        for (int j = 0; j < 9; ++j) x[j] = x[j] + w * dg[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        c[j] = x[j];
+        c[3 + j] = x[j] + x[3 + j];
+        c[6 + j] = x[j] + x[6 + j];
+    }
+}
+
+// The corners a test takes: the lerped ones in c (DEF), else staged
+// triangle k's, read from shared memory at the call as before the deform
+// modes existed (DEF is a template constant: the choice folds away)
+#define CORNERS(c, s, k)                                                    \
+    (DEF ? c[0] : s.c[k][0]), (DEF ? c[1] : s.c[k][1]),                     \
+        (DEF ? c[2] : s.c[k][2]), (DEF ? c[3] : s.c[k][3]),                 \
+        (DEF ? c[4] : s.c[k][4]), (DEF ? c[5] : s.c[k][5]),                 \
+        (DEF ? c[6] : s.c[k][6]), (DEF ? c[7] : s.c[k][7]),                 \
+        (DEF ? c[8] : s.c[k][8])
 
 // The render modes' arguments (one struct: the kernel takes them by value)
 struct DenseArgs {
@@ -365,6 +490,9 @@ struct DenseArgs {
     const int* vis_any;               // dual
     int n;
     int rounds;                       // 128-lane rounds per block
+    const float* steps;               // DEF: (S1, P, 3, 3)
+    int S1;                           // DEF: segments of the path
+    const float* time;                // DEF: the lanes' times
     float* t;                         // dual: t_boundary
     int* prim;
     float* u;
@@ -407,9 +535,11 @@ static __device__ __forceinline__ void write_empty(const DenseArgs& a,
     }
 }
 
-template <int MODE, bool COUNT>
+template <int MODE, bool COUNT, bool DEF>
 __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
     __shared__ StagedTris s;
+    extern __shared__ float dl_s[];  // DEF: STAGE x S1 x 9 deltas
+    const DeformPath dp = {a.steps, a.S1, a.P, dl_s};
     __shared__ int wcount[MAX_ROUNDS * WARPS];
     __shared__ int live_list[MAX_ROUNDS * BLOCK];
     const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
@@ -451,6 +581,7 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                     dy = act ? a.d[3 * i + 1] : 0.0f,
                     dz = act ? a.d[3 * i + 2] : 0.0f;
         const float tmin = act ? a.tmin[i] : 0.0f;
+        const float tm = (DEF && act) ? a.time[i] : 0.0f;
         const WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
         const CullRay cr = cull_ray(ox, oy, oz, dx, dy, dz, tmin);
         const float tmax = act ? a.tmax[i] : -1.0f;
@@ -467,9 +598,9 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
         int tested = 0, kept = 0, unions = 0;
         for (int pbase = 0; pbase < a.P; pbase += STAGE) {
             const int count = min(STAGE, a.P - pbase);
-            stage_tris(s, a.tri_verts, a.prim_object, a.obj_vis,
-                       MODE == MODE_DUAL ? a.boundary : nullptr, pbase,
-                       count);
+            stage_tris<DEF>(s, a.tri_verts, a.prim_object, a.obj_vis,
+                            MODE == MODE_DUAL ? a.boundary : nullptr, pbase,
+                            count, dp);
             const int nb = (count + TRI_BLOCK - 1) / TRI_BLOCK;
             for (int b = 0; b < nb; ++b) {
                 if (MODE == MODE_ANY &&
@@ -489,7 +620,7 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                 const bool vis_ok =
                     (MODE != MODE_DUAL && !use_vis) || (s.bvis[b] & mask) != 0;
                 const bool keep = act && vis_ok &&
-                                  keep_block(s, b, count, cr, gate);
+                                  keep_block<DEF>(s, b, count, cr, gate);
                 const unsigned int km = __ballot_sync(FULL_MASK, keep);
                 if (COUNT) {
                     kept += keep ? 1 : 0;
@@ -519,19 +650,22 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                         const float s_tmin = __shfl_sync(FULL_MASK, tmin, src);
                         const float s_tmax = __shfl_sync(FULL_MASK, tmax, src);
                         const int s_vis = __shfl_sync(FULL_MASK, vis, src);
+                        const float s_tm =
+                            DEF ? __shfl_sync(FULL_MASK, tm, src) : 0.0f;
                         const int k = b * TRI_BLOCK + j % TRI_BLOCK;
                         const bool pair = j < nk * TRI_BLOCK && k < kend &&
                                           s.obj[k] >= 0;
                         const int from = slot * TRI_BLOCK - j0;
                         const bool mine = keep && from >= 0 && from < 32;
                         const int fsrc = mine ? from : 0;
-                        float t, u, v;
+                        float t, u, v, c[9];
+                        if (DEF && pair) tri_corners<DEF>(s, dp, k, s_tm, c);
                         if (MODE == MODE_CLOSEST) {
                             const float s_bt = __shfl_sync(FULL_MASK, bt, src);
                             float tk = RT_RAY_TMAX, uk = 0.0f, vk = 0.0f;
                             int kk = -1;
                             if (pair && (!use_vis || (s.vis[k] & s_vis) != 0) &&
-                                wt_tri_c(ws, CORNERS(s, k), s_tmin, s_bt, &t,
+                                wt_tri_c(ws, CORNERS(c, s, k), s_tmin, s_bt, &t,
                                          &u, &v)) {
                                 tk = t; kk = k; uk = u; vk = v;
                             }
@@ -562,7 +696,7 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                         } else if (MODE == MODE_ANY) {
                             const bool hit =
                                 pair && (!use_vis || (s.vis[k] & s_vis) != 0) &&
-                                wt_tri_c(ws, CORNERS(s, k), s_tmin, s_tmax, &t,
+                                wt_tri_c(ws, CORNERS(c, s, k), s_tmin, s_tmax, &t,
                                          &u, &v);
                             const unsigned int hm = __ballot_sync(FULL_MASK, hit);
                             if (mine && ((hm >> from) & 0xFFu) != 0u)
@@ -574,7 +708,7 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                                 __shfl_sync(FULL_MASK, vis_any, src);
                             float tb = RT_RAY_TMAX, to = RT_RAY_TMAX;
                             bool hit_any = false;
-                            if (pair && wt_tri_c(ws, CORNERS(s, k), s_tmin,
+                            if (pair && wt_tri_c(ws, CORNERS(c, s, k), s_tmin,
                                                  RT_RAY_TMAX, &t, &u, &v)) {
                                 hit_any = t < s_tmax_any &&
                                           (s.vis[k] & s_vis_any) != 0;
@@ -609,8 +743,10 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                         if (s.obj[k] < 0) continue;
                         if (use_vis && (s.vis[k] & vis) == 0) continue;
                         if (COUNT) ++tested;
-                        float t, u, v;
-                        if (!wt_tri_c(w, CORNERS(s, k), tmin, bt, &t, &u, &v))
+                        float t, u, v, c[9];
+                        if (DEF) tri_corners<DEF>(s, dp, k, tm, c);
+                        if (!wt_tri_c(w, CORNERS(c, s, k), tmin, bt, &t, &u,
+                                      &v))
                             continue;
                         if (t < tk) {
                             tk = t; kk = k; uk = u; vk = v;
@@ -626,8 +762,9 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                         if (s.obj[k] < 0) continue;
                         if (use_vis && (s.vis[k] & vis) == 0) continue;
                         if (COUNT) ++tested;
-                        float t, u, v;
-                        if (wt_tri_c(w, CORNERS(s, k), tmin, tmax, &t, &u,
+                        float t, u, v, c[9];
+                        if (DEF) tri_corners<DEF>(s, dp, k, tm, c);
+                        if (wt_tri_c(w, CORNERS(c, s, k), tmin, tmax, &t, &u,
                                      &v)) {
                             blocked = true;
                             break;
@@ -637,9 +774,10 @@ __global__ void __launch_bounds__(BLOCK) dense_kernel(const DenseArgs a) {
                     for (int k = b * TRI_BLOCK; k < kend; ++k) {
                         if (s.obj[k] < 0) continue;
                         if (COUNT) ++tested;
-                        float t, u, v;
-                        if (!wt_tri_c(w, CORNERS(s, k), tmin, RT_RAY_TMAX, &t,
-                                      &u, &v))
+                        float t, u, v, c[9];
+                        if (DEF) tri_corners<DEF>(s, dp, k, tm, c);
+                        if (!wt_tri_c(w, CORNERS(c, s, k), tmin, RT_RAY_TMAX,
+                                      &t, &u, &v))
                             continue;
                         if (t < tmax_any && (s.vis[k] & vis_any) != 0)
                             blocked = true;
@@ -763,16 +901,33 @@ static int rounds_for(int n) {
     return r < 1 ? 1 : (r > MAX_ROUNDS ? MAX_ROUNDS : r);
 }
 
+template <int MODE, bool COUNT, bool DEF>
+static int launch_variant(const DenseArgs& a, int grid, void* stream) {
+    const size_t smem = DEF ? (size_t)STAGE * 9 * a.S1 * sizeof(float) : 0;
+    if (DEF) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            dense_kernel<MODE, COUNT, DEF>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    dense_kernel<MODE, COUNT, DEF>
+        <<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
 template <int MODE>
 static int launch_dense(DenseArgs a, void* stream) {
     if (a.n <= 0) return 0;
+    const bool def = a.steps != nullptr;
+    if (def && (a.S1 < 1 || a.S1 > MAX_SEGMENTS || a.time == nullptr))
+        return (int)cudaErrorInvalidValue;
     a.rounds = rounds_for(a.n);
     const int grid = (a.n + a.rounds * BLOCK - 1) / (a.rounds * BLOCK);
-    if (a.counts)
-        dense_kernel<MODE, true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
-    else
-        dense_kernel<MODE, false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    auto* fn = a.counts ? (def ? launch_variant<MODE, true, true>
+                               : launch_variant<MODE, true, false>)
+                        : (def ? launch_variant<MODE, false, true>
+                               : launch_variant<MODE, false, false>);
+    return fn(a, grid, stream);
 }
 
 extern "C" int rt_dense_closest(const float* tri_verts, const int* prim_object,
@@ -780,12 +935,13 @@ extern "C" int rt_dense_closest(const float* tri_verts, const int* prim_object,
                                 const float* d, const float* tmin,
                                 const float* tmax, const int* vis, int n,
                                 float* t, int* prim, float* u, float* v,
-                                int* obj, int* counts, void* stream) {
+                                int* obj, int* counts, const float* steps,
+                                int S1, const float* time, void* stream) {
     DenseArgs a = {};
     a.tri_verts = tri_verts; a.prim_object = prim_object; a.obj_vis = obj_vis;
     a.P = P; a.o = o; a.d = d; a.tmin = tmin; a.tmax = tmax; a.vis = vis;
     a.n = n; a.t = t; a.prim = prim; a.u = u; a.v = v; a.obj = obj;
-    a.counts = counts;
+    a.counts = counts; a.steps = steps; a.S1 = S1; a.time = time;
     return launch_dense<MODE_CLOSEST>(a, stream);
 }
 
@@ -794,11 +950,13 @@ extern "C" int rt_dense_any(const float* tri_verts, const int* prim_object,
                             const float* d, const float* tmin,
                             const float* tmax, const int* vis, int n,
                             unsigned char* blocked, int* counts,
+                            const float* steps, int S1, const float* time,
                             void* stream) {
     DenseArgs a = {};
     a.tri_verts = tri_verts; a.prim_object = prim_object; a.obj_vis = obj_vis;
     a.P = P; a.o = o; a.d = d; a.tmin = tmin; a.tmax = tmax; a.vis = vis;
     a.n = n; a.blocked = blocked; a.counts = counts;
+    a.steps = steps; a.S1 = S1; a.time = time;
     return launch_dense<MODE_ANY>(a, stream);
 }
 
@@ -809,13 +967,14 @@ extern "C" int rt_dense_dual(const float* tri_verts, const int* prim_object,
                              const float* tmaxa, const int* visc,
                              const int* visa, int n, float* tb, float* to,
                              unsigned char* blocked, int* counts,
+                             const float* steps, int S1, const float* time,
                              void* stream) {
     DenseArgs a = {};
     a.tri_verts = tri_verts; a.prim_object = prim_object; a.obj_vis = obj_vis;
     a.boundary = boundary; a.P = P; a.o = o; a.d = d; a.tmin = tmin;
     a.tmax = tmaxc; a.tmax_any = tmaxa; a.vis = visc; a.vis_any = visa;
     a.n = n; a.t = tb; a.t_other = to; a.blocked = blocked;
-    a.counts = counts;
+    a.counts = counts; a.steps = steps; a.S1 = S1; a.time = time;
     return launch_dense<MODE_DUAL>(a, stream);
 }
 

@@ -6,8 +6,8 @@
 // masked minima over camera-visible hits inside [tmin, tmax_closest]
 // (volume-boundary prims -> t_boundary, the rest -> t_other) and an
 // any-hit OR under vis_any inside [tmin, tmax_any]. Single-level tables of
-// up to 640 clusters (the JAX package's single-level cap), with or without
-// instance rows; no motion rows.
+// up to 640 clusters (the JAX package's single-level cap), with instance
+// rows or motion rows or neither.
 //
 // What bounds it on the H100: latency of the row reads, not bytes or
 // operations. The tables stay in L2 (138 KB for glossy); a lane tests
@@ -64,12 +64,22 @@
 // only by the pairs of its own lane, and only in rounds of a row that
 // lane needs, so a stale slot is never read.
 //
+// Motion rows (MOT; the TPU kernel's has_motion branch, :723): the warp
+// stages each triangle's shutter deltas after the vertices (21 floats a
+// triangle in place of 12: 1,260 bytes at ct = 15, against 720), and each
+// lane writes its ray's time into float 16 of its slot of the ray table
+// (the padding of RAY_STRIDE). A pair lerps its triangle to its lane's
+// time, v + time * dv per component, before the test (the plain
+// version's order). Boxes cover both shutter ends: the gate, the ballot
+// and the staging order do not change. Motion rows never carry instances
+// (the entry point refuses the two together).
+//
 // The counting variant (COUNT) also writes per lane the rows it tested,
 // the boxes it tested and the rows its warp staged, into counts[3 * lane].
 //
 // Registers and spills (ptxas -v, CUDA 12.8, sm_90a): 64 registers, no
-// spills, in both variants; with instance rows 80; chip_smoke.py prints
-// the build log.
+// spills, in both variants; with instance rows 80; motion rows: PERF.md
+// section 6; chip_smoke.py prints the build log.
 #include "watertight.cuh"
 
 #define K3_WARPS 4  // warps per block
@@ -83,12 +93,14 @@ static __device__ __forceinline__ float occ_gate(float t_b, float t_o,
 }
 
 // Shared memory of one warp, in floats: the staged columns of one cluster
-// (per triangle k of ct: the vertices at 9k, the prim id at 9ct + k, the
-// visibility at 10ct + k and the boundary flag at 11ct + k), the warp's
-// rays (RAY_STRIDE floats a lane: the shear basis, the degenerate flag,
-// tmin, tmax_closest, tmax_any), the round's results (t and flags a
-// thread) and the lane of each needing rank.
-#define RAY_STRIDE 17  // 16 floats, padded: no bank conflicts by lane
+// (per triangle k of ct: the vertices at 9k, with motion rows their deltas
+// at 9ct + 9k; then with TW = 9, or 18 with motion rows, the prim id at
+// TW ct + k, the visibility at (TW + 1) ct + k and the boundary flag at
+// (TW + 2) ct + k), the warp's rays (RAY_STRIDE floats a lane: the shear
+// basis, the degenerate flag, tmin, tmax_closest, tmax_any, the time),
+// the round's results (t and flags a thread) and the lane of each needing
+// rank.
+#define RAY_STRIDE 17  // odd: no bank conflicts by lane
 #define HIT_BOUNDARY 1
 #define HIT_OTHER 2
 #define HIT_ANY 4
@@ -102,27 +114,31 @@ static __device__ __forceinline__ void store_ray(float* my, const WtRay& w) {
     my[12] = w.degenerate ? 1.0f : 0.0f;
 }
 
-static __host__ __device__ __forceinline__ int stage_floats(int ct) {
-    return 12 * ct;
+static __host__ __device__ __forceinline__ int stage_floats(int ct,
+                                                            bool motion) {
+    return (motion ? 21 : 12) * ct;
 }
-static __host__ __device__ __forceinline__ int warp_floats(int ct) {
-    return stage_floats(ct) + 32 * RAY_STRIDE + 3 * 32;
+static __host__ __device__ __forceinline__ int warp_floats(int ct,
+                                                           bool motion) {
+    return stage_floats(ct, motion) + 32 * RAY_STRIDE + 3 * 32;
 }
 
-template <bool COUNT, bool INST>
+template <bool COUNT, bool INST, bool MOT>
 __global__ void occlusion_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     const float* __restrict__ cboundary, int C, int W, int ct,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin_a, const float* __restrict__ tmaxc_a,
-    const float* __restrict__ tmaxa_a, int n, int vis_closest, int vis_any,
+    const float* __restrict__ tmaxa_a, const float* __restrict__ time_a,
+    int n, int vis_closest, int vis_any,
     float* __restrict__ tb_out, float* __restrict__ to_out,
     bool* __restrict__ blk_out, int* __restrict__ counts) {
     extern __shared__ float smem[];
     float* sb = smem;
     const int lane = threadIdx.x & 31;
-    float* buf = smem + C * 6 + (threadIdx.x >> 5) * warp_floats(ct);
-    float* rays = buf + stage_floats(ct);
+    constexpr int TW = MOT ? 18 : 9;  // floats a staged triangle
+    float* buf = smem + C * 6 + (threadIdx.x >> 5) * warp_floats(ct, MOT);
+    float* rays = buf + stage_floats(ct, MOT);
     float* res_t = rays + 32 * RAY_STRIDE;
     int* res_f = (int*)(res_t + 32);
     int* lane_of = res_f + 32;
@@ -138,6 +154,7 @@ __global__ void occlusion_walk_kernel(
     float* my = rays + lane * RAY_STRIDE;
     if (!INST) store_ray(my, wt_setup(ox, oy, oz, dx, dy, dz));
     my[13] = tmin; my[14] = tmaxc; my[15] = tmaxa;
+    if (MOT) my[16] = time_a[r];
     W2oCache wc;  // the w2o bits the lane's slot was last built from (INST)
     __syncthreads();  // the bounds and the warp's rays are in place
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
@@ -145,10 +162,10 @@ __global__ void occlusion_walk_kernel(
     float t_b = RT_RAY_TMAX, t_o = RT_RAY_TMAX;
     bool blocked = false;
     int rows = 0, boxes = 0, staged = 0;
-    const int vcol = RT_META_COLS + 11 * ct;
-    const float* pid_s = buf + 9 * ct;
-    const float* vis_s = buf + 10 * ct;
-    const float* bnd_s = buf + 11 * ct;
+    const int vcol = RT_META_COLS + (TW + 2) * ct;
+    const float* pid_s = buf + TW * ct;
+    const float* vis_s = buf + (TW + 1) * ct;
+    const float* bnd_s = buf + (TW + 2) * ct;
     float g = occ_gate(t_b, t_o, blocked, tmaxc, tmaxa);
     bool live = in && g > tmin;
     bool any_live = __ballot_sync(RT_FULL_MASK, live) != 0u;
@@ -167,11 +184,11 @@ __global__ void occlusion_walk_kernel(
         }
         // stage the cluster's columns, lanes striding (coalesced)
         const float* row = ctable + (size_t)c * W;
-        for (int k = lane; k < 10 * ct; k += 32)
+        for (int k = lane; k < (TW + 1) * ct; k += 32)
             buf[k] = __ldg(row + RT_META_COLS + k);
         for (int k = lane; k < ct; k += 32) {
-            buf[10 * ct + k] = __ldg(row + vcol + k);
-            buf[11 * ct + k] = __ldg(cboundary + (size_t)c * ct + k);
+            buf[(TW + 1) * ct + k] = __ldg(row + vcol + k);
+            buf[(TW + 2) * ct + k] = __ldg(cboundary + (size_t)c * ct + k);
         }
         const int rank = __popc(m & ((1u << lane) - 1u));
         if (need) lane_of[rank] = lane;
@@ -200,11 +217,10 @@ __global__ void occlusion_walk_kernel(
                     w.rz0 = ry[6]; w.rz1 = ry[7]; w.rz2 = ry[8];
                     w.rxo = ry[9]; w.ryo = ry[10]; w.rzo = ry[11];
                     w.degenerate = ry[12] != 0.0f;
-                    const float* tri = buf + 9 * k;
                     float u, v;
-                    if (wt_tri_v(w, tri[0], tri[1], tri[2], tri[3], tri[4],
-                                 tri[5], tri[6], tri[7], tri[8], ry[13],
-                                 RT_RAY_TMAX, &t, &u, &v)) {
+                    if (wt_tri_at<MOT>(w, buf + 9 * k, buf + 9 * (ct + k),
+                                       MOT ? ry[16] : 0.0f, ry[13],
+                                       RT_RAY_TMAX, &t, &u, &v)) {
                         const int tv = (int)vis_s[k];
                         if (t < ry[14] && (tv & vis_closest) != 0)
                             f = bnd_s[k] > 0.0f ? HIT_BOUNDARY : HIT_OTHER;
@@ -244,17 +260,17 @@ __global__ void occlusion_walk_kernel(
     }
 }
 
-template <bool COUNT, bool INST>
+template <bool COUNT, bool INST, bool MOT>
 static void launch(int grid, int block, size_t smem, cudaStream_t stream,
                    const float* cbounds, const float* ctable,
                    const float* cboundary, int C, int W, int ct,
                    const float* o, const float* d, const float* tmin,
-                   const float* tmaxc, const float* tmaxa, int n,
-                   int vis_closest, int vis_any, float* tb, float* to,
+                   const float* tmaxc, const float* tmaxa, const float* time,
+                   int n, int vis_closest, int vis_any, float* tb, float* to,
                    bool* blocked, int* counts) {
-    occlusion_walk_kernel<COUNT, INST><<<grid, block, smem, stream>>>(
-        cbounds, ctable, cboundary, C, W, ct, o, d, tmin, tmaxc, tmaxa, n,
-        vis_closest, vis_any, tb, to, blocked, counts);
+    occlusion_walk_kernel<COUNT, INST, MOT><<<grid, block, smem, stream>>>(
+        cbounds, ctable, cboundary, C, W, ct, o, d, tmin, tmaxc, tmaxa, time,
+        n, vis_closest, vis_any, tb, to, blocked, counts);
 }
 
 extern "C" int rt_occlusion_walk(const float* cbounds, const float* ctable,
@@ -262,19 +278,24 @@ extern "C" int rt_occlusion_walk(const float* cbounds, const float* ctable,
                                  const float* o, const float* d,
                                  const float* tmin, const float* tmaxc,
                                  const float* tmaxa, int n, int vis_closest,
-                                 int vis_any, int instances, float* tb,
-                                 float* to, bool* blocked, int* counts,
-                                 void* stream) {
+                                 int vis_any, int instances, int motion,
+                                 const float* time, float* tb, float* to,
+                                 bool* blocked, int* counts, void* stream) {
     if (n <= 0) return 0;
+    if (instances && motion) return (int)cudaErrorInvalidValue;
     const int block = K3_WARPS * 32;
     const int grid = (n + block - 1) / block;
-    const size_t smem =
-        ((size_t)C * 6 + (size_t)K3_WARPS * warp_floats(ct)) * sizeof(float);
-    auto* fn = counts
-                   ? (instances ? launch<true, true> : launch<true, false>)
-                   : (instances ? launch<false, true> : launch<false, false>);
+    const size_t smem = ((size_t)C * 6 + (size_t)K3_WARPS *
+                                             warp_floats(ct, motion != 0)) *
+                        sizeof(float);
+    auto* fn = counts ? (instances ? launch<true, true, false>
+                                   : motion ? launch<true, false, true>
+                                            : launch<true, false, false>)
+                      : (instances ? launch<false, true, false>
+                                   : motion ? launch<false, false, true>
+                                            : launch<false, false, false>);
     fn(grid, block, smem, (cudaStream_t)stream, cbounds, ctable, cboundary, C,
-       W, ct, o, d, tmin, tmaxc, tmaxa, n, vis_closest, vis_any, tb, to,
+       W, ct, o, d, tmin, tmaxc, tmaxa, time, n, vis_closest, vis_any, tb, to,
        blocked, counts);
     return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_cluster.py
 // intersect_clusters_pallas / _cluster_kernel. Same contract as the plain
 // walk ops/cluster_intersect.py intersect_clusters (single-level cluster
-// tables with C <= 640, the JAX package's single-level cap, with or
-// without instance rows; no motion rows).
+// tables with C <= 640, the JAX package's single-level cap, with
+// instance rows or motion rows or neither).
 //
 // What the TPU kernel does: a tile of 1,024 rays keeps a (C, tile) table
 // of entry distances in VMEM; each step it takes the cluster whose masked
@@ -50,6 +50,15 @@
 // bit the ones it used last (an instance's clusters share them); t stays
 // in world units.
 //
+// Motion rows (MOT; the TPU kernel's has_motion branch, :164): the staged
+// row carries each triangle's shutter deltas after the triangles, and its
+// prim ids start at 13 + 18 ct. Boxes cover both shutter ends, so the
+// queues, the warp minimum and the retired bitmask do not change (the
+// mirrors take the same picks); a lane that tests the row lerps each
+// triangle to its time, v + time * dv per component, the plain version's
+// order. Motion rows never carry instances (the entry point refuses the
+// two together).
+//
 // The counting variant (COUNT) writes per lane the steps of its warp (rows
 // fetched), the rows it tested, its box tests and its box passes, into
 // counts[4 * lane]; ops/tile_walk.py tile_queue_order computes the same
@@ -74,12 +83,13 @@
 #define K4_QUEUE 12
 #endif
 
-template <int Q, bool COUNT, bool INST>
+template <int Q, bool COUNT, bool INST, bool MOT>
 __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     const float* __restrict__ cbounds, const float* __restrict__ ctable,
     int C, int W, int ct, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ tmin_a,
-    const float* __restrict__ tmax_a, const int* __restrict__ vis_a, int n,
+    const float* __restrict__ tmax_a, const int* __restrict__ vis_a,
+    const float* __restrict__ time_a, int n,
     int any_hit, float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ obj_out, int* __restrict__ counts) {
@@ -103,6 +113,7 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     const float tmin = live ? tmin_a[i] : 0.0f;
     const float tmax = live ? tmax_a[i] : -1.0f;
     const int vis = live ? vis_a[i] : 0;
+    const float tm = (MOT && live) ? time_a[i] : 0.0f;
     WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
     W2oCache wc;  // the w2o bits w was last built from (INST)
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
@@ -113,7 +124,7 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     float bt = fminf(tmax, RT_RAY_TMAX), bu = 0.0f, bv = 0.0f;
     int bp = -1, bo = -1;
     int steps = 0, rows = 0, boxes = 0, passes = 0;
-    const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
+    const int pbase = rt_prim_col(ct, MOT), obase = pbase + ct,
               vbase = obase + ct;
     RtLaneQueue<Q> queue;
     queue.init(live);
@@ -140,10 +151,10 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
                 const float pid = row[pbase + k];
                 if (!(pid >= 0.0f)) continue;
                 if (((int)row[vbase + k] & vis) == 0) continue;
-                const float* tri = row + RT_META_COLS + 9 * k;
                 float t, u, v;
-                if (wt_tri_v(w, tri[0], tri[1], tri[2], tri[3], tri[4], tri[5],
-                             tri[6], tri[7], tri[8], tmin, bt, &t, &u, &v)) {
+                if (wt_tri_at<MOT>(w, row + RT_META_COLS + 9 * k,
+                                   row + RT_META_COLS + 9 * (ct + k), tm,
+                                   tmin, bt, &t, &u, &v)) {
                     bt = t;
                     bp = (int)pid;
                     bu = u;
@@ -171,24 +182,25 @@ __global__ void __launch_bounds__(K4_WARPS* TILE) tile_walk_kernel(
     }
 }
 
-template <bool COUNT, bool INST>
+template <bool COUNT, bool INST, bool MOT>
 static int launch(const float* cbounds, const float* ctable, int C, int W,
                   int ct, const float* o, const float* d, const float* tmin,
-                  const float* tmax, const int* vis, int n, int any_hit,
-                  float* t, int* prim, float* u, float* v, int* obj,
-                  int* counts, cudaStream_t stream) {
+                  const float* tmax, const int* vis, const float* time, int n,
+                  int any_hit, float* t, int* prim, float* u, float* v,
+                  int* obj, int* counts, cudaStream_t stream) {
     const size_t smem = ((size_t)C * 6 + (size_t)K4_WARPS * W) * sizeof(float);
     if (smem + sizeof(unsigned int) * K4_WARPS * K4_MAX_WORDS > 227 * 1024)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        tile_walk_kernel<K4_QUEUE, COUNT, INST>,
+        tile_walk_kernel<K4_QUEUE, COUNT, INST, MOT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int block = K4_WARPS * TILE;
     const int grid = (n + block - 1) / block;
-    tile_walk_kernel<K4_QUEUE, COUNT, INST><<<grid, block, smem, stream>>>(
-        cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t, prim,
-        u, v, obj, counts);
+    tile_walk_kernel<K4_QUEUE, COUNT, INST, MOT>
+        <<<grid, block, smem, stream>>>(cbounds, ctable, C, W, ct, o, d, tmin,
+                                        tmax, vis, time, n, any_hit, t, prim,
+                                        u, v, obj, counts);
     return (int)cudaGetLastError();
 }
 
@@ -196,13 +208,18 @@ extern "C" int rt_tile_walk(const float* cbounds, const float* ctable, int C,
                             int W, int ct, const float* o, const float* d,
                             const float* tmin, const float* tmax,
                             const int* vis, int n, int any_hit,
-                            int instances, float* t, int* prim, float* u,
-                            float* v, int* obj, int* counts, void* stream) {
+                            int instances, int motion, const float* time,
+                            float* t, int* prim, float* u, float* v, int* obj,
+                            int* counts, void* stream) {
     if (n <= 0) return 0;
     if (C > K4_MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
-    auto* fn = counts
-                   ? (instances ? launch<true, true> : launch<true, false>)
-                   : (instances ? launch<false, true> : launch<false, false>);
-    return fn(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, n, any_hit, t,
-              prim, u, v, obj, counts, (cudaStream_t)stream);
+    if (instances && motion) return (int)cudaErrorInvalidValue;
+    auto* fn = counts ? (instances ? launch<true, true, false>
+                                   : motion ? launch<true, false, true>
+                                            : launch<true, false, false>)
+                      : (instances ? launch<false, true, false>
+                                   : motion ? launch<false, false, true>
+                                            : launch<false, false, false>);
+    return fn(cbounds, ctable, C, W, ct, o, d, tmin, tmax, vis, time, n,
+              any_hit, t, prim, u, v, obj, counts, (cudaStream_t)stream);
 }

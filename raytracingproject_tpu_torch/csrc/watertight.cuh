@@ -160,6 +160,45 @@ static __device__ __forceinline__ bool wt_tri(const WtRay& w,
                     t, u, v);
 }
 
+// Motion rows: a row's triangles [v0, e1, e2] are followed, after all of
+// them (at RT_META_COLS + 9 ct), by their shutter deltas in the same
+// layout, and its prim ids start at RT_META_COLS + 18 ct. The triangle a
+// ray of time `time` meets is each component lerped as v + time * dv (the
+// plain version's order, ops/cluster_intersect.py _row_tris), before the
+// corners are rebuilt as v0 + e.
+static __device__ __forceinline__ int rt_prim_col(int ct, bool motion) {
+    return RT_META_COLS + (motion ? 18 : 9) * ct;
+}
+
+// The 9 lerped components of a triangle into c; tri and dlt may lie in
+// shared or global memory.
+static __device__ __forceinline__ void rt_lerp9(const float* tri,
+                                                const float* dlt, float time,
+                                                float* c) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) c[j] = tri[j] + time * dlt[j];
+}
+
+// wt_tri_v on the triangle tri = [v0, e1, e2] at time `time` (dlt: its
+// deltas); with MOT false, on tri itself.
+template <bool MOT>
+static __device__ __forceinline__ bool wt_tri_at(const WtRay& w,
+                                                 const float* tri,
+                                                 const float* dlt, float time,
+                                                 float tmin, float tmax,
+                                                 float* t, float* u,
+                                                 float* v) {
+    float c[9];
+    if (MOT) {
+        rt_lerp9(tri, dlt, time, c);
+    } else {
+#pragma unroll
+        for (int j = 0; j < 9; ++j) c[j] = tri[j];
+    }
+    return wt_tri_v(w, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8],
+                    tmin, tmax, t, u, v);
+}
+
 static __device__ __forceinline__ float safe_inv(float d) {
     if (fabsf(d) > 1e-20f) return 1.0f / (d == 0.0f ? 1.0f : d);
     return d >= 0.0f ? 1e20f : -1e20f;

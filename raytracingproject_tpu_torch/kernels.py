@@ -34,22 +34,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# closest-hit walks: cbounds ctable C W ct o d tmin tmax vis n any_hit
-# instances t prim u v obj stream
-_WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-         _P, _P, _P, _P, _P, _P]
+# single-level closest-hit walks (K2, K4): cbounds ctable C W ct o d tmin
+# tmax vis n any_hit instances motion time t prim u v obj counts stream
+# (time: (N,) f32 or null; counts: (N, 2) for K2, (N, 4) for K4, int32, or
+# null: the counting variant runs when given)
+_WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+         _P, _P, _P, _P, _P, _P, _P]
 # source -> {C entry point: argtypes}
 SIGNATURES = {
-    # K2 takes the closest-hit walks' arguments and, before the stream,
-    # counts: (N, 2) int32 or null (the counting variant runs when given)
-    "cluster_walk.cu": {"rt_cluster_walk": _WALK[:-1] + [_P, _P]},
+    "cluster_walk.cu": {"rt_cluster_walk": _WALK},
     # cbounds ctable cboundary C W ct o d tmin tmaxc tmaxa n vis_c vis_a
-    # instances tb to blocked counts stream
+    # instances motion time tb to blocked counts stream
     "occlusion_walk.cu": {"rt_occlusion_walk": [
-        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-        _P, _P, _P]},
-    # K4 as K2: counts (N, 4) int32 or null before the stream
-    "tile_walk.cu": {"rt_tile_walk": _WALK[:-1] + [_P, _P]},
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P]},
+    "tile_walk.cu": {"rt_tile_walk": _WALK},
     # sc_bounds cbounds ctable SC C W ct gmax o d tmin tmax vis n any_hit
     # instances t prim u v obj counts stream (counts: (N, 6) int32 or null)
     "cluster2_walk.cu": {"rt_cluster2_walk": [
@@ -67,15 +66,18 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P]},
     "dense_sweep.cu": {
         # tri_verts prim_object obj_vis P o d tmin tmax vis n t prim u v obj
-        # counts stream (counts: (N, 3) int32 or null, as K2's)
+        # counts steps S1 time stream (counts: (N, 3) int32 or null, as
+        # K2's; steps (S1, P, 3, 3) and time (N,) f32 or null: the deform
+        # modes run when given)
         "rt_dense_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                             _P, _P, _P, _P, _P, _P, _P],
-        # ... n blocked counts stream
-        "rt_dense_any": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+        # ... n blocked counts steps S1 time stream
+        "rt_dense_any": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                         _P, _I, _P, _P],
         # tri_verts prim_object obj_vis boundary P o d tmin tmaxc tmaxa visc
-        # visa n tb to blocked counts stream
+        # visa n tb to blocked counts steps S1 time stream
         "rt_dense_dual": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _P, _P, _P, _P, _P],
+                          _I, _P, _P, _P, _P, _P, _I, _P, _P],
         # v0 e1 e2 P o d tmin tmax n t prim u v stream
         "rt_dense_mt": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                         _P]},

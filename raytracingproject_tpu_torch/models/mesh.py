@@ -2,7 +2,9 @@
 raytracingproject_tpu/models/mesh.py).
 
 Host-side numpy until the scene compile packs them (models/scene.py).
-Subdivision, hair and motion attributes are not part of this slice.
+Deforming motion is the attribute "std_motion_vertex_position": one
+shutter-close position per vertex (V, 3), or uniform steps after shutter
+open (S-1, V, 3). Subdivision and hair are not part of the port.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from raytracingproject_tpu_torch.models.node import Node, SocketType as S
 
 ATTR_STD_UV = "std_uv"
 ATTR_STD_VERTEX_NORMAL = "std_vertex_normal"
+ATTR_STD_MOTION_VERTEX_POSITION = "std_motion_vertex_position"
 ATTR_ELEMENT_VERTEX = "vertex"
 ATTR_ELEMENT_CORNER = "corner"
 
@@ -28,6 +31,8 @@ class Attribute:
 
 class Mesh(Node):
     SOCKETS = [
+        S("use_motion_blur", S.BOOLEAN, False),
+        S("motion_steps", S.UINT, 3),
         S("verts", S.POINT_ARRAY, np.zeros((0, 3), np.float32)),
         S("triangles", S.INT_ARRAY, np.zeros((0,), np.int32)),
         S("shader", S.INT_ARRAY, np.zeros((0,), np.int32)),

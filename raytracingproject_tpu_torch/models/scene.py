@@ -4,7 +4,12 @@ raytracingproject_tpu/models/scene.py `Scene.device_update` +
 
 The card has no JAX, so the port owns its host compile. It is numpy
 only and covers the port's scenes:
-- geometry: static single-user meshes baked to world space, and
+- geometry: static single-user meshes baked to world space, with
+  deforming motion (a mesh's "std_motion_vertex_position" path resampled
+  onto the scene's uniform shutter steps, the JAX package's :597-622,
+  :990-1010: tri_verts_world_t1 / tri_verts_world_steps for the dense
+  sweeps, and cluster rows with a shutter delta block for a two-step
+  path; a path of three steps or more keeps no cluster tables), and
   instancing (the JAX package's static vs instanced split :485-497): a
   geometry with several users in a scene of more than
   AUTO_FLATTEN_MAX_PRIMS flat prims keeps one object-space BLAS, and each
@@ -33,7 +38,7 @@ tests/test_torch_instanced.py, tests/test_torch_dense.py). The TLAS and
 the packed-BVH traversal arrays are not built, nor the bf16x3 one-hot
 tables (oh_*, oh2_*): no render path of the port reads them.
 
-Raising NotImplementedError: motion, hair, subdivision, displacement,
+Raising NotImplementedError: object motion, hair, subdivision, displacement,
 portals, background lamps (the importance map), IES profiles, the light
 tree, transparent film, image files, and static scenes of 2,048 prims or
 more (the JAX package's native C++ BVH construction).
@@ -58,6 +63,8 @@ from raytracingproject_tpu_torch.models.camera import Camera
 from raytracingproject_tpu_torch.models.film import Film
 from raytracingproject_tpu_torch.models.image import ImageManager, TextureStore
 from raytracingproject_tpu_torch.models.integrator import Integrator
+from raytracingproject_tpu_torch.models.mesh import \
+    ATTR_STD_MOTION_VERTEX_POSITION
 from raytracingproject_tpu_torch.models.object import (
     PATH_RAY_ALL_VISIBILITY, PATH_RAY_SHADOW)
 from raytracingproject_tpu_torch.models.shader import Shader, ShaderGraph
@@ -86,6 +93,36 @@ KG_ARRAYS = ("prim_table", "object_table", "cluster_bounds",
 KG_DENSE = ("tri_verts_world", "prim_object_packed", "object_visibility")
 # ... and those only some scenes have (two-level cluster tables)
 KG_OPTIONAL = ("sc_bounds",)
+# ... and the deforming scenes (the triangles at shutter close and at the
+# steps of their path)
+KG_DEFORM = ("tri_verts_world_t1", "tri_verts_world_steps")
+
+
+def _resample_motion_steps(v0, extra_steps, n_extra):
+    """A mesh's piecewise-linear vertex path resampled onto n_extra
+    uniform shutter steps after t=0. extra_steps: (S_m-1, V, 3) positions
+    at times k/(S_m-1); returns (n_extra, V, 3) at times j/n_extra (exact
+    where the grids share a point)."""
+    if n_extra == 0:
+        return np.zeros((0,) + v0.shape, np.float32)
+    path = np.concatenate([v0[None], extra_steps], axis=0)  # (S_m, V, 3)
+    sm1 = path.shape[0] - 1
+    out = np.empty((n_extra,) + v0.shape, np.float32)
+    for j in range(1, n_extra + 1):
+        tt = j / n_extra * sm1
+        k = min(int(np.floor(tt)), sm1 - 1)
+        f = tt - k
+        out[j - 1] = path[k] if f == 0.0 \
+            else (1.0 - f) * path[k] + f * path[k + 1]
+    return out
+
+
+def _geom_extra_steps(geom):
+    """Shutter steps after t=0 of a mesh's deform path (0: static)."""
+    a = geom.attribute_get(ATTR_STD_MOTION_VERTEX_POSITION)
+    if a is None:
+        return 0
+    return a.data.shape[0] if a.data.ndim == 3 else 1
 
 
 def default_surface_shader():
@@ -163,14 +200,14 @@ class Scene:
         arrays.update(lightd)
         arrays["prim_is_boundary"], cbnd = _boundary_tables(
             self.shaders, arrays["prim_table"], arrays.get("cluster_table"),
-            packed["__cluster_tris__"])
+            packed["__cluster_tris__"], packed["__cluster_motion__"])
         if cbnd is not None:
             arrays["cluster_boundary"] = cbnd
         tex_data, tex_sizes = self.image_manager.device_update()
         bg = self.background.shader
         self.dscene = {
             "arrays": {k: arrays[k] for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL
-                       if k in arrays},
+                       + KG_DEFORM if k in arrays},
             "cam": self.camera.update(),
             "kint": self.integrator.kernel_record(),
             "filter_table": self.film.build_filter_table(),
@@ -182,7 +219,10 @@ class Scene:
                                   else -1),
             "use_brute": packed["__use_brute__"],
             "has_instances": packed["__has_instances__"],
+            "has_deform_motion": packed["__has_deform_motion__"],
+            "deform_steps": packed["__deform_steps__"],
             "cluster_tris": packed["__cluster_tris__"],
+            "cluster_motion": packed["__cluster_motion__"],
             "sc_gmax": packed["__sc_gmax__"],
             "light_kinds": lightd["__light_kinds__"],
             "volume_stack_depth": int(self.integrator.volume_stack_depth),
@@ -190,10 +230,12 @@ class Scene:
         return self.dscene
 
     # ------------------------------------------------------------------
-    def _mesh_arrays(self, mesh, obj_idx, world_tfm):
+    def _mesh_arrays(self, mesh, obj_idx, world_tfm, deform_extra=0):
         """Per-triangle arrays of one mesh (world space when world_tfm is
         given, else object space): verts, vertex normals, corner uvs,
-        shader slots, smooth flags and the object index."""
+        shader slots, smooth flags, the object index, the triangles at the
+        scene's deform_extra shutter steps after t=0 ((S-1, T, 3, 3): a
+        static mesh repeats its verts) and whether the mesh deforms."""
         v = mesh.verts_array
         t = mesh.triangles_array
         if len(t) == 0:
@@ -201,8 +243,17 @@ class Scene:
         vn_attr = mesh.attribute_get("std_vertex_normal")
         vn = mesh.compute_vertex_normals() if vn_attr is None \
             else vn_attr.data
+        mv_attr = mesh.attribute_get(ATTR_STD_MOTION_VERTEX_POSITION)
+        steps = None
+        if mv_attr is not None:
+            mv = np.asarray(mv_attr.data, np.float32)
+            steps = _resample_motion_steps(
+                v, mv[None] if mv.ndim == 2 else mv, deform_extra)
         if world_tfm is not None:
             v = tfm.transform_point(world_tfm, v)
+            if steps is not None and len(steps):
+                steps = np.stack([tfm.transform_point(world_tfm, s)
+                                  for s in steps])
             itt = np.linalg.inv(tfm.to_4x4(world_tfm))[:3, :3].T
             vn = vn @ itt.T
             ln = np.linalg.norm(vn, axis=-1, keepdims=True)
@@ -215,7 +266,11 @@ class Scene:
             uv = uv_attr.data.reshape(-1, 3, 2)[: len(t)]
         else:
             uv = uv_attr.data[t]
-        return {"verts": v[t], "vnormal": vn[t], "uv": uv,
+        deform = steps is not None
+        if steps is None:
+            steps = np.broadcast_to(v, (deform_extra,) + v.shape)
+        return {"verts": v[t], "steps": steps[:, t], "deform": deform,
+                "vnormal": vn[t], "uv": uv,
                 "shader": np.array(
                     [self._shader_slot(mesh, s)
                      for s in np.asarray(mesh.shader, np.int32)], np.int32),
@@ -231,9 +286,15 @@ class Scene:
             return np.zeros((0,) + tail, dtype)
 
         verts = cat("verts", (3, 3))
+        # the tree is built over the shutter-open triangles (object
+        # splits only, as the JAX package keeps for deforming meshes)
         bvh = bvh_build.build_bvh(verts.min(1), verts.max(1))
         order = bvh.prim_order
+        steps = np.ascontiguousarray(np.concatenate(
+            [p["steps"] for p in parts], axis=1).astype(np.float32)[:, order])
         return {"children": bvh.children, "verts": verts[order],
+                "verts_steps": steps,
+                "verts_t1": steps[-1] if len(steps) else verts[order],
                 "vnormal": cat("vnormal", (3, 3))[order],
                 "uv": cat("uv", (3, 2))[order],
                 "shader": cat("shader", (), np.int32)[order],
@@ -261,20 +322,28 @@ class Scene:
                 instanced_geoms.setdefault(
                     id(obj.geometry), (obj.geometry, []))[1].append(oi)
         has_instances = len(instanced_geoms) > 0
+        # the scene-wide deform step count: every deforming mesh's path is
+        # resampled onto the common S-1 uniform steps after shutter open
+        deform_extra = max([_geom_extra_steps(o.geometry)
+                            for o in objects] + [0])
 
         # static merged geometry (world space), then one object-space
         # BLAS per instanced geometry
         blocks = []
         static_parts = [p for p in (
             self._mesh_arrays(objects[oi].geometry, oi,
-                              np.asarray(objects[oi].transform, np.float32))
+                              np.asarray(objects[oi].transform, np.float32),
+                              deform_extra)
             for oi in static_objs) if p is not None]
+        deform_seen = any(p["deform"] for p in static_parts)
         if static_parts:
             blocks.append(self._block(static_parts))
         geom_blas = {}
         for gid, (geom, _users) in instanced_geoms.items():
             geom_blas[gid] = len(blocks)
-            blocks.append(self._block([self._mesh_arrays(geom, -1, None)]))
+            part = self._mesh_arrays(geom, -1, None, deform_extra)
+            deform_seen = deform_seen or part["deform"]
+            blocks.append(self._block([part]))
         if not blocks:
             raise NotImplementedError("empty scenes are not ported")
 
@@ -331,14 +400,29 @@ class Scene:
         packed["prim_object_packed"] = packed["object"]
         packed["object_visibility"] = obj_visibility
         packed["__has_instances__"] = has_instances
-        # instanced triangles exist only in object space: never dense
-        packed["__use_brute__"] = (not has_instances
-                                   and P <= BRUTE_VS_CLUSTER_PRIMS)
+        # deforming motion of instanced geometry has no port path (nor a
+        # kernel path in the JAX package): it compiles as static
+        has_deform = deform_seen and not has_instances
+        packed["__has_deform_motion__"] = has_deform
+        packed["__deform_steps__"] = deform_extra + 1 if has_deform else 1
+        if has_deform:
+            packed["tri_verts_world_t1"] = blocks[0]["verts_t1"]
+            # the whole (S-1, P, 3, 3) path, for the dense sweeps'
+            # hat-weighted evaluation
+            packed["tri_verts_world_steps"] = blocks[0]["verts_steps"]
         packed["__cluster_tris__"] = 0
+        packed["__cluster_motion__"] = False
         packed["__sc_gmax__"] = 0
-        if has_instances or P >= CLUSTER_MIN_PRIMS:
+        # cluster rows carry one shutter delta per triangle (a two-step
+        # lerp): a path of three steps or more rides the dense sweep
+        if (has_instances or P >= CLUSTER_MIN_PRIMS) \
+                and not (has_deform and deform_extra > 1):
             self._pack_clusters(packed, blocks, instance_rows, prim_bases,
                                 obj_visibility)
+        # the dense sweep where no cluster table exists or the scene is
+        # small; instanced triangles exist only in object space: never
+        packed["__use_brute__"] = (not has_instances) and (
+            "cluster_bounds" not in packed or P <= BRUTE_VS_CLUSTER_PRIMS)
         # ---- wide lookup tables (ops/lookup.py layout) ----
         pt = np.zeros((P, lk.PT_COLS), np.float32)
         pt[:, lk.PT_V0:lk.PT_V0 + 9] = packed["verts"].reshape(P, 9)
@@ -408,11 +492,17 @@ class Scene:
                                 "w2o": w2o, "lo": wc.min(0), "hi": wc.max(0)})
         else:
             tv, po = packed["verts"], packed["object"]
+            tv1 = packed.get("tri_verts_world_t1")
             for (s, c) in block_cuts[0]:
                 verts = tv[s:s + c]
                 objv = po[s:s + c]
-                allv = verts.reshape(-1, 3)
-                cds.append({"verts": verts, "prim": np.arange(s, s + c),
+                # deforming: the bounds cover both shutter ends, and the
+                # row carries each triangle's shutter delta
+                allv = verts.reshape(-1, 3) if tv1 is None \
+                    else np.concatenate([verts, tv1[s:s + c]]).reshape(-1, 3)
+                cds.append({"verts": verts,
+                            "verts_t1": None if tv1 is None else tv1[s:s + c],
+                            "prim": np.arange(s, s + c),
                             "obj": objv,
                             "vis": obj_visibility[np.maximum(objv, 0)],
                             "lo": allv.min(0), "hi": allv.max(0)})
@@ -420,6 +510,8 @@ class Scene:
         packed["cluster_bounds"] = cb
         packed["cluster_table"] = ctab
         packed["__cluster_tris__"] = ct_used
+        packed["__cluster_motion__"] = any(
+            cd.get("verts_t1") is not None for cd in cds)
         if two_level:
             gmax = max(CLUSTER2_GROUP_TARGET, -(-total_c // 512))
             gmax = -(-gmax // 8) * 8
@@ -611,18 +703,19 @@ class Scene:
                              for li in self.lights], device)
 
 
-def _boundary_tables(shaders, prim_table, ctab, ct):
+def _boundary_tables(shaders, prim_table, ctab, ct, motion=False):
     """Volume-boundary flags: (P,) bool per prim (its shader has a
     volume closure) and (C, ct) 0/1 float per cluster slot, the table
     K3's dual form splits its two minima by (None without cluster
-    tables). All zero without volume shaders."""
+    tables; motion: the rows carry a delta block). All zero without
+    volume shaders."""
     shv = np.array([bool(s.has_volume) for s in shaders] or [False])
     pshader = np.clip(prim_table[:, lk.PT_SHADER].astype(np.int64), 0,
                       len(shv) - 1)
     prim_bnd = shv[pshader]
     if ctab is None:
         return prim_bnd, None
-    pb = ci.META_COLS + 9 * ct
+    pb = ci.prim_col(ct, motion)
     pids = ctab[:, pb:pb + ct].astype(np.int64)
     bnd = np.where(pids >= 0,
                    prim_bnd[np.clip(pids, 0, len(prim_bnd) - 1)], False)
@@ -672,7 +765,8 @@ def _to_tensor(a, device):
 def _assemble_kg(arrays, ds, shaders, textures, lamp_types, device):
     return {
         "dscene": {k: _to_tensor(arrays[k], device)
-                   for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL if k in arrays},
+                   for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL + KG_DEFORM
+                   if k in arrays},
         "cam": ds["cam"],
         "kint": ds["kint"],
         "filter_table": torch.tensor(np.array(ds["filter_table"]),
@@ -683,8 +777,13 @@ def _assemble_kg(arrays, ds, shaders, textures, lamp_types, device):
         "use_brute": bool(ds["use_brute"]),
         "cluster_tris": int(ds["cluster_tris"]),
         "sc_gmax": int(ds["sc_gmax"]),
-        "cluster_motion": False,
+        "cluster_motion": bool(ds["cluster_motion"]),
         "has_instances": bool(ds["has_instances"]),
+        "has_deform_motion": bool(ds["has_deform_motion"]),
+        "deform_steps": int(ds["deform_steps"]),
+        # object motion is not in the port: rays carry a time for the
+        # deforming meshes only
+        "has_motion": bool(ds["has_deform_motion"]),
         "film_transparent": False,
         "num_area_lamps": lamp_types.count(light_mod.LIGHT_AREA),
         "lamp_types": lamp_types,
@@ -716,10 +815,10 @@ def estimate_constant_emission(shader):
 # package, bit for bit as its own compile of that scene
 # (tests/test_torch_render.py, tests/test_torch_scene.py)
 
-# statics the JAX package sets that this slice has no path for: a
-# scene that turns one on cannot be rendered by the port
-_UNPORTED_FLAGS = ("cluster_motion", "has_motion",
-                   "has_deform_motion", "has_shadow_catcher",
+# statics the JAX package sets that the port has no path for: a scene
+# that turns one on cannot be rendered by the port (has_motion without
+# has_deform_motion is object motion, refused in kg_from_jax)
+_UNPORTED_FLAGS = ("has_shadow_catcher",
                    "film_transparent", "light_passes", "aux_passes",
                    "sorted_shading")
 
@@ -760,15 +859,24 @@ def kg_from_jax(kg_jax, device):
             raise NotImplementedError(f"kg['{k}'] is not ported")
     if kg_jax.get("light_tree") is not None:
         raise NotImplementedError("the light tree is not ported")
+    if kg_jax.get("has_motion") and not kg_jax.get("has_deform_motion"):
+        raise NotImplementedError("object motion is not ported")
+    # the JAX package keeps tri_verts_world_t1 in every scene (the static
+    # triangles where nothing deforms); the port only where it deforms
+    keys = KG_ARRAYS + KG_DENSE + KG_OPTIONAL + (
+        KG_DEFORM if kg_jax.get("has_deform_motion") else ())
     arrays = {k: np.asarray(kg_jax["dscene"][k])
-              for k in KG_ARRAYS + KG_DENSE + KG_OPTIONAL if k in kg_jax["dscene"]}
+              for k in keys if k in kg_jax["dscene"]}
     ds = {"cam": {k: np.asarray(v) for k, v in kg_jax["cam"].items()},
           "kint": dict(kg_jax["kint"]),
           "filter_table": np.asarray(kg_jax["filter_table"]),
           "background_shader": kg_jax["background_shader"],
           "use_brute": kg_jax["use_brute"],
           "has_instances": kg_jax.get("has_instances", False),
+          "has_deform_motion": kg_jax.get("has_deform_motion", False),
+          "deform_steps": kg_jax.get("deform_steps", 1),
           "cluster_tris": kg_jax["cluster_tris"],
+          "cluster_motion": kg_jax.get("cluster_motion", False),
           "sc_gmax": kg_jax.get("sc_gmax", 0),
           "light_kinds": kg_jax["light_kinds"],
           "volume_stack_depth": kg_jax["volume_stack_depth"]}

@@ -58,13 +58,14 @@ def smem_per_warp(sc, gmax, w):
 def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
                              o, d, tmin, tmax, visibility,
                              shadow_any_hit=False, has_instances=False,
-                             has_motion=False, counts=False):
+                             has_motion=False, time=None, counts=False):
     """Closest hit (or any hit) over the two-level cluster tables;
     returns dict t, u, v (f32) and prim, object (int32), (N,) each; with
     counts=True (hit dict, (N, 6) int32 counts as the module states)."""
     global launches
     if has_motion:
-        raise NotImplementedError("motion cluster rows are not ported")
+        raise NotImplementedError(
+            "motion rows in K5 are not ported (time is read only with them)")
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")

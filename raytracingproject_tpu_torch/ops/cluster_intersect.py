@@ -4,7 +4,8 @@ has the contract of ops/pallas_cluster.py `occlusion_clusters_pallas`).
 
 The BVH is cut into <= 512 clusters of <= cluster_tris triangles; each
 cluster is one row of `cluster_table`:
-  [w2o(12), pad(1)] [v0, e1, e2 per tri (9 each)] [prim id per tri]
+  [w2o(12), pad(1)] [v0, e1, e2 per tri (9 each)]
+  ([dv0, de1, de2 per tri (9 each)]: motion rows only) [prim id per tri]
   [object id per tri] [visibility per tri]
 padded with prim id -1.
 
@@ -18,8 +19,15 @@ Instancing: an instanced scene packs every instance's BLAS clusters with
 world-space bounds and the instance's world->object transform in the
 row's w2o columns; with has_instances the walk transforms each lane's
 ray by the visited row's w2o (t is preserved: the direction is not
-renormalised) before the watertight test. Motion rows (a per-triangle
-shutter delta block) are not in the port and raise.
+renormalised) before the watertight test.
+
+Deforming motion: a scene whose triangles move on a two-step path packs
+motion rows, where each triangle's (v0, e1, e2) at shutter close minus
+at shutter open follows the static block; with has_motion the walk
+tests each lane against the triangles lerped to its time,
+v + time * dv per component (the JAX package's _motion_components with
+one segment), before the watertight test. Bounds cover both shutter
+ends, so the entry table and the visit order need nothing more.
 """
 
 from __future__ import annotations
@@ -36,21 +44,34 @@ META_COLS = 13
 CHUNK = 65536
 
 
-def row_width(cluster_tris):
-    return META_COLS + cluster_tris * 12
+def row_width(cluster_tris, motion=False):
+    """Floats in a row: motion rows carry 9 shutter deltas a triangle."""
+    return META_COLS + cluster_tris * (21 if motion else 12)
+
+
+def prim_col(cluster_tris, motion=False):
+    """First column of a row's prim ids (object ids and visibility
+    follow, cluster_tris columns each)."""
+    return META_COLS + (18 if motion else 9) * cluster_tris
+
+
+def is_motion_table(ctable, cluster_tris):
+    """Whether a table's rows are motion rows (by their width)."""
+    return int(ctable.shape[1]) == row_width(cluster_tris, True)
 
 
 def pack_cluster_table(clusters_np):
     """Host-side packing. clusters_np: list of dicts with keys verts
     (ct_i, 3, 3) [object space], prim (ct_i,), obj (ct_i,), vis (ct_i,),
-    lo (3,), hi (3,) and optionally w2o (3, 4) (None or absent: identity).
-    Returns (cluster_bounds (C, 6) f32, cluster_table (C, W) f32,
+    lo (3,), hi (3,) and optionally w2o (3, 4) (None or absent: identity)
+    and verts_t1 (ct_i, 3, 3), the triangles at shutter close (any
+    cluster with it makes the whole table of motion rows). Returns
+    (cluster_bounds (C, 6) f32, cluster_table (C, W) f32,
     cluster_tris)."""
-    if any(cl.get("verts_t1") is not None for cl in clusters_np):
-        raise NotImplementedError("motion cluster rows are not ported")
     c = len(clusters_np)
     ct = max(max((len(cl["prim"]) for cl in clusters_np), default=1), 1)
-    table = np.zeros((c, row_width(ct)), np.float32)
+    motion = any(cl.get("verts_t1") is not None for cl in clusters_np)
+    table = np.zeros((c, row_width(ct, motion)), np.float32)
     bounds = np.zeros((c, 6), np.float32)
     for i, cl in enumerate(clusters_np):
         bounds[i, :3] = cl["lo"]
@@ -64,7 +85,13 @@ def pack_cluster_table(clusters_np):
         tri = np.concatenate(
             [v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], axis=1)
         table[i, META_COLS:META_COLS + 9 * k] = tri.reshape(-1)
-        base = META_COLS + 9 * ct
+        if motion:
+            v1 = np.asarray(cl.get("verts_t1", cl["verts"]), np.float32)
+            tri1 = np.concatenate(
+                [v1[:, 0], v1[:, 1] - v1[:, 0], v1[:, 2] - v1[:, 0]], axis=1)
+            db = META_COLS + 9 * ct
+            table[i, db:db + 9 * k] = (tri1 - tri).reshape(-1)
+        base = prim_col(ct, motion)
         table[i, base:base + ct] = -1.0
         table[i, base:base + k] = np.asarray(cl["prim"], np.float32)
         base2 = base + ct
@@ -92,12 +119,26 @@ def entry_table(cbounds, o, d, tmin, tmax):
     return torch.where(ok, torch.maximum(tn, tmin[None]), INF)
 
 
-def _row_tris(rows, ct):
-    """(N, W) cluster rows -> v0/e1/e2 component tuples of (N, ct)."""
+def _row_tris(rows, ct, time=None):
+    """(N, W) cluster rows -> v0/e1/e2 component tuples of (N, ct);
+    with time ((N,), motion rows) each component lerped to the lane's
+    time as v + time * dv."""
     tri = rows[:, META_COLS:META_COLS + 9 * ct].reshape(-1, ct, 9)
+    if time is not None:
+        db = META_COLS + 9 * ct
+        dlt = rows[:, db:db + 9 * ct].reshape(-1, ct, 9)
+        tri = tri + time[:, None, None] * dlt
     return (tuple(tri[..., j] for j in range(3)),
             tuple(tri[..., 3 + j] for j in range(3)),
             tuple(tri[..., 6 + j] for j in range(3)))
+
+
+def lane_time(time, n, has_motion, dev):
+    """The lanes' shutter times for a motion walk (zeros where none is
+    given, as the JAX walks take them), None without motion rows."""
+    if not has_motion:
+        return None
+    return torch.zeros(n, device=dev) if time is None else time
 
 
 def _lane_ws(o, d):
@@ -129,7 +170,7 @@ def _chunked(fn, n, args, lane_args):
         return fn(*args)
     outs = []
     for s in range(0, n, CHUNK):
-        a = [x[s:s + CHUNK] if i in lane_args else x
+        a = [x[s:s + CHUNK] if i in lane_args and x is not None else x
              for i, x in enumerate(args)]
         outs.append(fn(*a))
     if isinstance(outs[0], dict):
@@ -139,7 +180,8 @@ def _chunked(fn, n, args, lane_args):
 
 
 def intersect_clusters(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                       visibility, shadow_any_hit=False, has_instances=False):
+                       visibility, shadow_any_hit=False, has_instances=False,
+                       time=None, has_motion=False):
     """Closest hit (or any hit) over the cluster tables.
 
     o, d (N, 3) f32; tmin, tmax (N,) f32; visibility (N,) int. Returns
@@ -148,16 +190,18 @@ def intersect_clusters(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
     entry order (ties: highest cluster id first, as the JAX walk does)
     and retires every cluster whose entry is behind the best hit. With
     has_instances each row's triangles are tested against the lane's ray
-    transformed by that row's w2o."""
+    transformed by that row's w2o; with has_motion (motion rows) against
+    the triangles lerped to the lane's time ((N,), zeros when None)."""
+    time = lane_time(time, o.shape[0], has_motion, o.device)
     return _chunked(
         lambda *a: _intersect_chunk(*a, shadow_any_hit=shadow_any_hit,
                                     has_instances=has_instances),
         o.shape[0], (cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                     visibility), {3, 4, 5, 6, 7})
+                     visibility, time), {3, 4, 5, 6, 7, 8})
 
 
 def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
-                     shadow_any_hit=False, has_instances=False):
+                     time, shadow_any_hit=False, has_instances=False):
     n, c = o.shape[0], cbounds.shape[0]
     dev = o.device
     entry = entry_table(cbounds, o, d, tmin, tmax)
@@ -170,7 +214,7 @@ def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
     bo = torch.full((n,), -1, dtype=torch.int32, device=dev)
     ws = _lane_ws(o, d)
     vis = visibility.to(torch.int32)[:, None]
-    pbase = META_COLS + 9 * ct
+    pbase = prim_col(ct, time is not None)
     obase, vbase = pbase + ct, pbase + 2 * ct
     for _ in range(c):
         e_min = entry.min(0).values
@@ -181,7 +225,7 @@ def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
         rows = ctable[cid.clamp(min=0)]
         if has_instances:
             ws = _lane_ws(*_row_w2o_ray(rows, o, d))
-        v0c, e1c, e2c = _row_tris(rows, ct)
+        v0c, e1c, e2c = _row_tris(rows, ct, time)
         valid, t, u, v = isect.wt_block(ws, v0c, e1c, e2c, tmin[:, None],
                                         bt[:, None])
         pid = rows[:, pbase:pbase + ct]
@@ -206,7 +250,7 @@ def _intersect_chunk(cbounds, ctable, ct, o, d, tmin, tmax, visibility,
 
 def intersect_clusters_dual(cbounds, ctable, cluster_tris, o_c, d_c, tmin_c,
                             tmax_c, vis_c, o_a, d_a, tmin_a, tmax_a, vis_a,
-                            has_instances=False):
+                            has_instances=False, time=None, has_motion=False):
     """The union walk's contract (JAX counterpart: ops/pallas_onehot.py
     intersect_clusters_onehot_dual), computed as the two single walks it
     stands for: per lane the closest hit of ray (o_c, d_c) inside
@@ -218,19 +262,22 @@ def intersect_clusters_dual(cbounds, ctable, cluster_tris, o_c, d_c, tmin_c,
     ray is then never blocked, the closest ray misses. A miss returns
     t = min(tmax_c, RAY_TMAX) (so a disabled closest ray returns its own
     negative tmax_c) and prim = object = -1. With has_instances both
-    rays are transformed by each row's w2o."""
+    rays are transformed by each row's w2o; with has_motion both are
+    tested at the lane's time."""
     hit = intersect_clusters(cbounds, ctable, cluster_tris, o_c, d_c,
                              tmin_c, tmax_c, vis_c,
-                             has_instances=has_instances)
+                             has_instances=has_instances, time=time,
+                             has_motion=has_motion)
     shadow = intersect_clusters(cbounds, ctable, cluster_tris, o_a, d_a,
                                 tmin_a, tmax_a, vis_a, shadow_any_hit=True,
-                                has_instances=has_instances)
+                                has_instances=has_instances, time=time,
+                                has_motion=has_motion)
     return hit, shadow["prim"] >= 0
 
 
 def occlusion_clusters(cbounds, ctable, cboundary, cluster_tris, o, d,
                        tmin, tmax_closest, tmax_any, vis_closest, vis_any,
-                       has_instances=False):
+                       has_instances=False, time=None, has_motion=False):
     """Dual-reduction occlusion sweep: (t_boundary, t_other, blocked).
 
     t_boundary / t_other: RAY_TMAX-capped minima of hit t over
@@ -241,13 +288,15 @@ def occlusion_clusters(cbounds, ctable, cboundary, cluster_tris, o, d,
     any order; it skips a cluster whose entry is behind every window it
     can still tighten (the JAX kernel's gate). With has_instances each
     row's triangles are tested against the lane's ray transformed by that
-    row's w2o."""
+    row's w2o; with has_motion (motion rows) against the triangles lerped
+    to the lane's time ((N,), zeros when None)."""
+    time = lane_time(time, o.shape[0], has_motion, o.device)
     return _chunked(
         lambda *a: _occlusion_chunk(*a, vis_closest=vis_closest,
                                     vis_any=vis_any,
                                     has_instances=has_instances),
         o.shape[0], (cbounds, ctable, cboundary, cluster_tris, o, d, tmin,
-                     tmax_closest, tmax_any), {4, 5, 6, 7, 8})
+                     tmax_closest, tmax_any, time), {4, 5, 6, 7, 8, 9})
 
 
 def occlusion_gate(t_b, t_o, blocked, tmaxc, tmaxa):
@@ -257,7 +306,7 @@ def occlusion_gate(t_b, t_o, blocked, tmaxc, tmaxa):
 
 
 def _occlusion_chunk(cbounds, ctable, cboundary, ct, o, d, tmin, tmaxc,
-                     tmaxa, vis_closest, vis_any, has_instances=False):
+                     tmaxa, time, vis_closest, vis_any, has_instances=False):
     n, c = o.shape[0], cbounds.shape[0]
     dev = o.device
     entry = entry_table(cbounds, o, d, tmin, torch.maximum(tmaxc, tmaxa))
@@ -266,7 +315,7 @@ def _occlusion_chunk(cbounds, ctable, cboundary, ct, o, d, tmin, tmaxc,
     t_o = torch.full((n,), RAY_TMAX, device=dev)
     blocked = torch.zeros(n, dtype=torch.bool, device=dev)
     ws = _lane_ws(o, d)
-    pbase = META_COLS + 9 * ct
+    pbase = prim_col(ct, time is not None)
     vbase = pbase + 2 * ct
     for _ in range(c):
         g = occlusion_gate(t_b, t_o, blocked, tmaxc, tmaxa)
@@ -277,7 +326,7 @@ def _occlusion_chunk(cbounds, ctable, cboundary, ct, o, d, tmin, tmaxc,
         rows = ctable[cid]
         if has_instances:
             ws = _lane_ws(*_row_w2o_ray(rows, o, d))
-        v0c, e1c, e2c = _row_tris(rows, ct)
+        v0c, e1c, e2c = _row_tris(rows, ct, time)
         valid, t, _, _ = isect.wt_block(ws, v0c, e1c, e2c, tmin[:, None],
                                         RAY_TMAX)
         pid = rows[:, pbase:pbase + ct]

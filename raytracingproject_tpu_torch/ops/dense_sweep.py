@@ -14,9 +14,12 @@ ops/intersect.py and the same signature and returns:
 
 The first three are what the integrator's use_brute dispatch calls; no
 render calls the fourth, in either package. A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. Deform motion
-(tri_verts_t1, time) is not ported and raises. `launches` counts kernel
-launches per mode. With counts=True the first three run the kernel's
+version; a CUDA tensor launches the kernel or raises. Given tri_verts_t1
+(the triangles at shutter close (P, 3, 3), or at the S-1 uniform steps
+after shutter open (S-1, P, 3, 3)) and time ((N,) f32), the first three
+run their deform modes: each ray meets the triangles where they are at
+its time, as the plain versions compute it. `launches` counts kernel
+launches per mode (a deform mode counts under its mode's name). With counts=True the first three run the kernel's
 counting variant and also return (N, 3) int32 counts per lane: the
 triangles it tested, the blocks of TRI_BLOCK triangles it kept, and the
 blocks that any lane of its warp kept (CUDA tensors only).
@@ -24,8 +27,9 @@ blocks that any lane of its warp kept (CUDA tensors only).
 The kernel tests a block's triangles only where `block_keep` holds: the
 plain torch statement of its cull, in its operation order, which the
 tests and chip_smoke.py hold against the plain watertight test and the
-kernel's counts (csrc/dense_sweep.cu says why it is exact). No render
-path calls it.
+kernel's counts (csrc/dense_sweep.cu says why it is exact). In the deform
+modes it takes the steps: the boxes span every step, and only the box
+part of the cull applies. No render path calls it.
 """
 
 from __future__ import annotations
@@ -57,22 +61,33 @@ def _dot(a, b):
         + a[..., 2] * b[..., 2]
 
 
-def block_data(tri_verts):
+def _corners(tv):
+    """(P, 3, 3) corners v0, v0 + (tv1 - v0), v0 + (tv2 - v0)."""
+    v0 = tv[:, 0]
+    return torch.stack([v0, v0 + (tv[:, 1] - v0), v0 + (tv[:, 2] - v0)], 1)
+
+
+def block_data(tri_verts, steps=None):
     """What the kernel stages per block of TRI_BLOCK triangles, over the
     corners v0, v0 + (tv1 - v0), v0 + (tv2 - v0) (a partial last block
-    repeats its last triangle, which changes no maximum or minimum):
+    repeats its last triangle, which changes no maximum or minimum); with
+    steps ((S1, P, 3, 3), the deform modes) the boxes span the corners at
+    shutter open and at every step:
     (nb, 6) narrow and (nb, 6) wide padded boxes [lo, hi], (nb, 4)
     [K, B, G, M] and (nb, 8, 3) the triangles' unit normals. M is the
     block's largest |coordinate|; a lane is edge-on to a block when
     |n . d| < (K + (B + G E) E) |d| for one of its normals n, with
     E = EPS_E (M + max |o|)."""
     p = tri_verts.shape[0]
-    v0 = tri_verts[:, 0]
-    c = torch.stack([v0, v0 + (tri_verts[:, 1] - v0),
-                     v0 + (tri_verts[:, 2] - v0)], 1)
+    c = _corners(tri_verts)
     c = torch.cat([c, c[-1:].expand((-p) % isect.TRI_BLOCK, 3, 3)])
     nb = c.shape[0] // isect.TRI_BLOCK
     flat = c.reshape(nb, isect.TRI_BLOCK * 3, 3)
+    if steps is not None:
+        cs = torch.stack([_corners(x) for x in steps], 1)   # (P, S1, 3, 3)
+        cs = torch.cat([cs, cs[-1:].expand((-p) % isect.TRI_BLOCK,
+                                           *cs.shape[1:])])
+        flat = torch.cat([flat, cs.reshape(nb, -1, 3)], 1)
     lo, hi = flat.amin(1), flat.amax(1)
     m = torch.maximum(lo.abs().amax(1), hi.abs().amax(1))
     pad = (BOX_REL * m + BOX_ABS)[:, None]
@@ -111,14 +126,16 @@ def _line_meets(box, o, inv, m):
     return near, far, tn <= tf
 
 
-def block_keep(tri_verts, o, d, tmin, gate):
+def block_keep(tri_verts, o, d, tmin, gate, steps=None):
     """(N, nb) bool: whether the kernel tests block b's triangles for lane
     i with gate[i] (or gate[i, b]): the bound on the watertight test's t
     from the narrow box's slab on the lane's dominant axis meets
     (tmin, gate), the lane's line meets the wide box, and it meets the
-    narrow box too or the lane is edge-on to the block. Every triangle
-    the plain test hits at tmin < t < gate lies in a kept block."""
-    narrow, wide, geo, nrm = block_data(tri_verts)
+    narrow box too or the lane is edge-on to the block (with steps, the
+    deform modes: the boxes span every step, and the narrow box or the
+    edge-on test is not asked). Every triangle the plain test hits at
+    tmin < t < gate lies in a kept block."""
+    narrow, wide, geo, nrm = block_data(tri_verts, steps)
     narrow, wide, geo = narrow[None], wide[None], geo[None]
     inv = isect.safe_inv(d)[:, None]
     mo = o.abs().amax(1)[:, None]
@@ -142,6 +159,8 @@ def block_keep(tri_verts, o, d, tmin, gate):
     edge_on = (~(dots >= thr[..., None])).any(2)
     if gate.dim() == 1:
         gate = gate[:, None]
+    if steps is not None:
+        edge_on = torch.ones_like(edge_on)
     return (lower < gate) & (upper > tmin[:, None]) & w_ok \
         & (n_ok | edge_on)
 
@@ -156,6 +175,9 @@ def kept_blocks(mode, a, chunk=4096):
     watertight test's hits in the blocks before it: a block the cull
     skips holds no hit below its gate, so it changes no gate."""
     tv, po = a["tri_verts"], a["prim_object"]
+    steps = a.get("tri_verts_t1")
+    if steps is not None and steps.dim() == 3:
+        steps = steps[None]
     p = tv.shape[0]
     pad = (-p) % isect.TRI_BLOCK
     ov = a["object_visibility"]
@@ -178,10 +200,10 @@ def kept_blocks(mode, a, chunk=4096):
         sl = slice(s, s + chunk)
         o, d, tmin = a["o"][sl], a["d"][sl], a["tmin"][sl]
         ws = isect.watertight_setup(o[:, None], d[:, None])
-        v0 = tv[None, :, 0]
         valid, t, _u, _v = isect.wt_block(
-            ws, v0.unbind(-1), (tv[None, :, 1] - v0).unbind(-1),
-            (tv[None, :, 2] - v0).unbind(-1), tmin[:, None], RAY_TMAX)
+            ws, *isect.tris_at(tv, po, steps, None if steps is None
+                               else a["time"][sl]),
+            tmin[:, None], RAY_TMAX)
         valid = valid & (po >= 0)[None]
         real = (po >= 0)[None].expand_as(valid)
         if mode == "dual":
@@ -223,7 +245,8 @@ def kept_blocks(mode, a, chunk=4096):
             tri_ok = real & ((pv & mask[:, None]) != 0) \
                 if mode != "dual" else real
             vis_ok = blocks(((pv & mask[:, None]) != 0).int(), 0).amax(2) > 0
-        keep = live[:, None] & vis_ok & block_keep(tv, o, d, tmin, gate)
+        keep = live[:, None] & vis_ok & block_keep(tv, o, d, tmin, gate,
+                                                   steps)
         keep_all.append(keep)
         tested.append((keep * blocks(tri_ok.int(), 0).sum(2)).sum(1))
     tested = torch.cat(tested).to(torch.int32)
@@ -337,10 +360,25 @@ def grazing_rays(tri_verts, n, seed):
     return _rays(parts, tri_verts.device)
 
 
-def _no_deform(tri_verts_t1, time):
-    if tri_verts_t1 is not None or time is not None:
-        raise NotImplementedError(
-            "deform motion in the dense sweep is not ported")
+# the deform modes stage at most this many segments' deltas
+# (csrc/dense_sweep.cu MAX_SEGMENTS)
+MAX_SEGMENTS = 20
+
+
+def _deform_rows(tri_verts, tri_verts_t1, time, n):
+    """The deform modes' kernel arguments (steps (S1, P, 3, 3), S1,
+    time) and their check rows, or (None, 0, None) and none."""
+    kernels.require((tri_verts_t1 is None) == (time is None),
+                    "tri_verts_t1 and time go together")
+    if tri_verts_t1 is None:
+        return (None, 0, None), []
+    steps = tri_verts_t1 if tri_verts_t1.dim() == 4 else tri_verts_t1[None]
+    s1, p = steps.shape[0], tri_verts.shape[0]
+    kernels.unsupported(
+        0 < s1 <= MAX_SEGMENTS,
+        f"{s1} segments: the deform modes take at most {MAX_SEGMENTS}")
+    return (steps, s1, time), [("tri_verts_t1", steps, _F, (s1, p, 3, 3)),
+                               ("time", time, _F, (n,))]
 
 
 def _check(tensors, n=None):
@@ -396,16 +434,17 @@ def intersect_brute_sweep(tri_verts, prim_object, o, d, tmin, tmax,
                           tri_verts_t1=None, time=None, counts=False):
     """Dense closest hit; returns dict t, u, v (f32), prim, object (int32)
     as ops/intersect.py intersect_brute (with counts=True, (hit, counts))."""
-    _no_deform(tri_verts_t1, time)
     if o.device.type == "cpu":
         _no_counts_on_cpu(counts)
         return isect.intersect_brute(tri_verts, prim_object, o, d, tmin,
-                                     tmax, visibility, object_visibility)
+                                     tmax, visibility, object_visibility,
+                                     tri_verts_t1=tri_verts_t1, time=time)
     if visibility is None or object_visibility is None:
         visibility = object_visibility = None
     p, rows = _tri_rows(tri_verts, prim_object, object_visibility)
     n, rays = _ray_rows(o, d, tmin=tmin, tmax=tmax, visibility=visibility)
-    _check(rows + rays)
+    (steps, s1, time), drows = _deform_rows(tri_verts, tri_verts_t1, time, n)
+    _check(rows + rays + drows)
     dev = o.device
     out = {"t": torch.empty(n, dtype=_F, device=dev),
            "prim": torch.empty(n, dtype=_I, device=dev),
@@ -416,7 +455,8 @@ def intersect_brute_sweep(tri_verts, prim_object, o, d, tmin, tmax,
     _launch("closest", "rt_dense_closest", tri_verts.data_ptr(),
             prim_object.data_ptr(), _ptr(object_visibility), p, o.data_ptr(),
             d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), _ptr(visibility),
-            n, *(x.data_ptr() for x in out.values()), _ptr(cnt))
+            n, *(x.data_ptr() for x in out.values()), _ptr(cnt), _ptr(steps),
+            s1, _ptr(time))
     return (out, cnt) if counts else out
 
 
@@ -425,22 +465,24 @@ def shadow_blocked_sweep(tri_verts, prim_object, o, d, tmin, tmax,
                          tri_verts_t1=None, time=None, counts=False):
     """Dense any hit: (N,) bool, as ops/intersect.py shadow_blocked_brute
     (with counts=True, (blocked, counts))."""
-    _no_deform(tri_verts_t1, time)
     if o.device.type == "cpu":
         _no_counts_on_cpu(counts)
         return isect.shadow_blocked_brute(tri_verts, prim_object, o, d, tmin,
-                                          tmax, visibility, object_visibility)
+                                          tmax, visibility, object_visibility,
+                                          tri_verts_t1=tri_verts_t1,
+                                          time=time)
     if visibility is None or object_visibility is None:
         visibility = object_visibility = None
     p, rows = _tri_rows(tri_verts, prim_object, object_visibility)
     n, rays = _ray_rows(o, d, tmin=tmin, tmax=tmax, visibility=visibility)
-    _check(rows + rays)
+    (steps, s1, time), drows = _deform_rows(tri_verts, tri_verts_t1, time, n)
+    _check(rows + rays + drows)
     blocked = torch.empty(n, dtype=_B, device=o.device)
     cnt = _counts(counts, n, o.device)
     _launch("any", "rt_dense_any", tri_verts.data_ptr(),
             prim_object.data_ptr(), _ptr(object_visibility), p, o.data_ptr(),
             d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), _ptr(visibility),
-            n, blocked.data_ptr(), _ptr(cnt))
+            n, blocked.data_ptr(), _ptr(cnt), _ptr(steps), s1, _ptr(time))
     return (blocked, cnt) if counts else blocked
 
 
@@ -451,19 +493,20 @@ def occlusion_sweep(tri_verts, prim_object, boundary_mask, o, d, tmin,
     """The volume NEE's dual form: (t_boundary, t_other, blocked), as
     ops/intersect.py intersect_brute_occlusion (with counts=True, the
     counts follow as a fourth element)."""
-    _no_deform(tri_verts_t1, time)
     if o.device.type == "cpu":
         _no_counts_on_cpu(counts)
         return isect.intersect_brute_occlusion(
             tri_verts, prim_object, boundary_mask, o, d, tmin, tmax_closest,
-            tmax_any, visibility_closest, visibility_any, object_visibility)
+            tmax_any, visibility_closest, visibility_any, object_visibility,
+            tri_verts_t1=tri_verts_t1, time=time)
     p, rows = _tri_rows(tri_verts, prim_object, object_visibility)
     rows.append(("boundary_mask", boundary_mask, _B, (p,)))
     n, rays = _ray_rows(o, d, tmin=tmin, tmax_closest=tmax_closest,
                         tmax_any=tmax_any,
                         visibility_closest=visibility_closest,
                         visibility_any=visibility_any)
-    _check(rows + rays)
+    (steps, s1, time), drows = _deform_rows(tri_verts, tri_verts_t1, time, n)
+    _check(rows + rays + drows)
     dev = o.device
     t_b = torch.empty(n, dtype=_F, device=dev)
     t_o = torch.empty(n, dtype=_F, device=dev)
@@ -474,7 +517,8 @@ def occlusion_sweep(tri_verts, prim_object, boundary_mask, o, d, tmin,
             boundary_mask.data_ptr(), p, o.data_ptr(), d.data_ptr(),
             tmin.data_ptr(), tmax_closest.data_ptr(), tmax_any.data_ptr(),
             visibility_closest.data_ptr(), visibility_any.data_ptr(), n,
-            t_b.data_ptr(), t_o.data_ptr(), blocked.data_ptr(), _ptr(cnt))
+            t_b.data_ptr(), t_o.data_ptr(), blocked.data_ptr(), _ptr(cnt),
+            _ptr(steps), s1, _ptr(time))
     return (t_b, t_o, blocked, cnt) if counts else (t_b, t_o, blocked)
 
 

@@ -30,14 +30,15 @@ launches = 0
 def intersect_clusters_dual_walk(cbounds, ctable, cluster_tris, o_c, d_c,
                                  tmin_c, tmax_c, vis_c, o_a, d_a, tmin_a,
                                  tmax_a, vis_a, has_instances=False,
-                                 has_motion=False, counts=False):
+                                 has_motion=False, time=None, counts=False):
     """Closest hit of ray c and any hit of ray a; returns (dict t, u, v
     (f32) and prim, object (int32), blocked (bool)), (N,) each; with
     counts=True also the (N, 4) int32 counts. An empty window (tmax <
     tmin) disables that ray of the lane."""
     global launches
     if has_motion:
-        raise NotImplementedError("motion cluster rows are not ported")
+        raise NotImplementedError(
+            "motion rows in K7 are not ported (time is read only with them)")
     kernels.unsupported(
         cbounds.shape[0] <= cluster_walk.MAX_CLUSTERS,
         f"{cbounds.shape[0]} clusters: the union walk takes at most "

@@ -119,8 +119,25 @@ def _check_cluster_scene(kg):
     ds = kg["dscene"]
     if "cluster_bounds" not in ds or int(kg.get("cluster_tris", 0)) <= 0:
         raise NotImplementedError("scene has no cluster tables")
-    if kg.get("cluster_motion"):
-        raise NotImplementedError("motion cluster rows are not ported")
+
+
+def _deform(kg, time):
+    """The dense sweeps' deform arguments (tri_verts_t1, time): the
+    whole step path of a deforming scene when the rays carry a time."""
+    if not kg.get("has_deform_motion") or time is None:
+        return {}
+    ds = kg["dscene"]
+    return {"tri_verts_t1": ds.get("tri_verts_world_steps",
+                                   ds.get("tri_verts_world_t1")),
+            "time": time}
+
+
+def _motion(kg, time):
+    """The cluster walks' motion arguments: the rays' times where the
+    rows carry shutter deltas."""
+    if not kg.get("cluster_motion"):
+        return {}
+    return {"time": time, "has_motion": True}
 
 
 def _flag(kg, name):
@@ -135,26 +152,31 @@ def _closest_walk_name(kg):
     packed keys (C <= 512: the reference packs its one-hot tables only
     then), else K4 ("tile_walk", up to 640 clusters) under
     pallas_clusters, else None (the plain walk)."""
-    c = int(kg["dscene"]["cluster_bounds"].shape[0])
-    if _flag(kg, "pallas_onehot") and cluster_walk.fits(c):
+    ds = kg["dscene"]
+    c = int(ds["cluster_bounds"].shape[0])
+    if _flag(kg, "pallas_onehot") \
+            and cluster_walk.fits(c, int(ds["cluster_table"].shape[1])):
         return "cluster_walk"
     if _flag(kg, "pallas_clusters"):
         return "tile_walk"
     return None
 
 
-def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
+def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False,
+                          time=None):
     """Closest hit (any hit with shadow=True) through K1 on use_brute
     scenes, K5 or K6 on two-level tables, K2 or K4 on single-level ones,
-    or, on the CPU with the kernel's flag off, the plain walk."""
+    or, on the CPU with the kernel's flag off, the plain walk. time (N,)
+    is the rays' shutter time, read where the scene deforms."""
     ds = kg["dscene"]
     if kg["use_brute"]:
         return dense_sweep.intersect_brute_sweep(
             ds["tri_verts_world"], ds["prim_object_packed"], o, d, tmin, tmax,
             visibility=visibility,
-            object_visibility=ds["object_visibility"])
+            object_visibility=ds["object_visibility"], **_deform(kg, time))
     _check_cluster_scene(kg)
     inst = bool(kg.get("has_instances", False))
+    mot = _motion(kg, time)
     args = (ds["cluster_bounds"], ds["cluster_table"],
             int(kg["cluster_tris"]), o, d, tmin, tmax, visibility)
     if "sc_bounds" in ds:
@@ -167,12 +189,12 @@ def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
                 walk2 = onehot2_walk.intersect_clusters2_onehot
             return walk2(
                 ds["sc_bounds"], *args[:3], int(kg["sc_gmax"]), *args[3:],
-                shadow_any_hit=shadow, has_instances=inst)
+                shadow_any_hit=shadow, has_instances=inst, **mot)
         kernel_flags = "pallas_clusters2 (K5)"
     elif (walk := _closest_walk_name(kg)) is not None:
         fn = (cluster_walk.intersect_clusters_walk if walk == "cluster_walk"
               else tile_walk.intersect_clusters_tile)
-        return fn(*args, shadow_any_hit=shadow, has_instances=inst)
+        return fn(*args, shadow_any_hit=shadow, has_instances=inst, **mot)
     else:
         kernel_flags = "pallas_onehot (K2) or pallas_clusters (K4)"
     if o.device.type != "cpu":
@@ -180,7 +202,7 @@ def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False):
             "the plain cluster walk is not a render path on the card: set "
             + kernel_flags)
     return ci.intersect_clusters(*args, shadow_any_hit=shadow,
-                                 has_instances=inst)
+                                 has_instances=inst, **mot)
 
 
 def _use_occlusion_walk(kg):
@@ -197,7 +219,7 @@ def _use_occlusion_walk(kg):
     return (not kg["use_brute"]) if mode == "auto" else bool(mode)
 
 
-def _occlusion(kg, o, d, tmin, tmax_closest, tmax_any):
+def _occlusion(kg, o, d, tmin, tmax_closest, tmax_any, time=None):
     """K3: (t_boundary, t_other, blocked) under camera visibility for
     the closest window and shadow visibility for the any-hit window."""
     _check_cluster_scene(kg)
@@ -207,21 +229,24 @@ def _occlusion(kg, o, d, tmin, tmax_closest, tmax_any):
         int(kg["cluster_tris"]), o, d, tmin, tmax_closest=tmax_closest,
         tmax_any=tmax_any, vis_closest=ob.PATH_RAY_CAMERA,
         vis_any=ob.PATH_RAY_SHADOW,
-        has_instances=bool(kg.get("has_instances", False)))
+        has_instances=bool(kg.get("has_instances", False)),
+        **_motion(kg, time))
 
 
-def _shadow_blocked(kg, o, d, tmin, tmax):
+def _shadow_blocked(kg, o, d, tmin, tmax, time=None):
     vis = torch.full(o.shape[:1], ob.PATH_RAY_SHADOW, dtype=torch.int32,
                      device=o.device)
     if kg["use_brute"]:
         ds = kg["dscene"]
         return dense_sweep.shadow_blocked_sweep(
             ds["tri_verts_world"], ds["prim_object_packed"], o, d, tmin, tmax,
-            visibility=vis, object_visibility=ds["object_visibility"])
+            visibility=vis, object_visibility=ds["object_visibility"],
+            **_deform(kg, time))
     if _use_occlusion_walk(kg):
         # pure any-hit: the closest window is empty ([tmin, tmin])
-        return _occlusion(kg, o, d, tmin, tmin, tmax)[2]
-    hit = _scene_intersect_tris(kg, o, d, tmin, tmax, vis, shadow=True)
+        return _occlusion(kg, o, d, tmin, tmin, tmax, time)[2]
+    hit = _scene_intersect_tris(kg, o, d, tmin, tmax, vis, shadow=True,
+                                time=time)
     return hit["prim"] >= 0
 
 
@@ -269,7 +294,8 @@ def _use_fused_nee(kg):
     if int(ds["light_dist_type"].shape[0]) == 0:
         return False
     return _flag(kg, "pallas_onehot") \
-        and cluster_walk.fits(ds["cluster_bounds"].shape[0])
+        and cluster_walk.fits(ds["cluster_bounds"].shape[0],
+                              int(ds["cluster_table"].shape[1]))
 
 
 def _dual_walk(kg, o_c, d_c, tmin_c, tmax_c, vis_c, o_a, d_a, tmax_a, vis_a):
@@ -400,22 +426,24 @@ def make_path_kernel(kg, px, py, pixel_index):
                                     ob.PATH_RAY_TRANSMIT,
                                     ob.PATH_RAY_GLOSSY))).to(torch.int32)
 
-    def dual_sweep(o_s, d_s, on_any, on_closest, tmax_s):
-        """((t_boundary, t_other), blocked) of one segment; disabled
-        lanes get the empty window [1e-5, 1e-5]."""
+    def dual_sweep(o_s, d_s, on_any, on_closest, tmax_s, time):
+        """((t_boundary, t_other), blocked) of one segment at the rays'
+        shutter times; disabled lanes get the empty window [1e-5,
+        1e-5]."""
         tmin = torch.full((n,), 1e-5, device=dev)
         o_s, d_s = o_s.contiguous(), d_s.contiguous()
         tmax_c = torch.where(on_closest,
                              torch.clamp(tmax_s, max=um.RAY_TMAX), 1e-5)
         tmax_a = torch.where(on_any, tmax_s, 1e-5)
         if _use_occlusion_walk(kg):
-            t_b, t_o, blk = _occlusion(kg, o_s, d_s, tmin, tmax_c, tmax_a)
+            t_b, t_o, blk = _occlusion(kg, o_s, d_s, tmin, tmax_c, tmax_a,
+                                       time)
         else:
             t_b, t_o, blk = dense_sweep.occlusion_sweep(
                 ds["tri_verts_world"], ds["prim_object_packed"],
                 ds["prim_is_boundary"], o_s, d_s, tmin, tmax_c, tmax_a,
                 i32(ob.PATH_RAY_CAMERA), i32(ob.PATH_RAY_SHADOW),
-                ds["object_visibility"])
+                ds["object_visibility"], **_deform(kg, time))
         return (t_b, t_o), blk
 
     def vol_nee_attenuation(sigma_t, boundary_hit, dist_l):
@@ -526,7 +554,7 @@ def make_path_kernel(kg, px, py, pixel_index):
             ls_eq, P_eq, ls_eq["D"], ls_eq["dist"],
             torch.clamp(ls_eq["dist"] * (1.0 - 1e-3) - RAY_EPS, min=1e-5))
         bhit_eq, blk_eq = dual_sweep(P_eq, ls_eq["D"], sh_on_eq, sh_on_eq,
-                                     sh_tmax_eq)
+                                     sh_tmax_eq, st["time"])
         sh_trans_eq = torch.where(blk_eq[:, None], 0.0, 1.0)
         contrib_eq = contrib_eq * sh_trans_eq
         trans_eq, block_eq = vol_nee_attenuation(vc["sigma_t"], bhit_eq,
@@ -564,7 +592,8 @@ def make_path_kernel(kg, px, py, pixel_index):
         else:
             hit = _scene_intersect_tris(kg, st["o"], st["d"], st["tmin"],
                                         st["tmax"],
-                                        vis_of_flag(st["path_flag"]))
+                                        vis_of_flag(st["path_flag"]),
+                                        time=st["time"])
         found = hit["prim"] >= 0
         L = st["L"]
         throughput = st["throughput"]
@@ -673,7 +702,8 @@ def make_path_kernel(kg, px, py, pixel_index):
             elif use_dual_shadow:
                 in_vol_sh = st["vol_shader"] >= 0
                 bhit_sh, blocked = dual_sweep(sh_o, sh_d, can_light,
-                                              can_light & in_vol_sh, sh_tmax)
+                                              can_light & in_vol_sh, sh_tmax,
+                                              st["time"])
                 contrib = contrib * torch.where(blocked[:, None], 0.0, 1.0)
                 # in a medium: attenuate to the boundary; a surface before
                 # it blocks, the boundary itself does not
@@ -686,7 +716,7 @@ def make_path_kernel(kg, px, py, pixel_index):
                 tmin_sh = torch.full((n,), 1e-5, device=dev)
                 blocked = _shadow_blocked(
                     kg, sh_o, sh_d, tmin_sh,
-                    torch.where(can_light, sh_tmax, tmin_sh))
+                    torch.where(can_light, sh_tmax, tmin_sh), time=st["time"])
                 contrib = contrib * torch.where(blocked[:, None], 0.0, 1.0)
             if has_equiangular:
                 L, w_t_d, mis_lane, replaced = equiangular_nee(

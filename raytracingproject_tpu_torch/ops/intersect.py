@@ -1,7 +1,8 @@
 """Watertight ray/triangle test and the dense sweeps (JAX counterpart:
 raytracingproject_tpu/ops/intersect.py `watertight_setup` :48,
 `watertight_test` :108, `_wt_block` :289, `_safe_inv` :195,
-`_pack_tri_blocks` :211, `intersect_brute` :298, `shadow_blocked_brute`
+`_pack_tri_blocks` :211, `_motion_components` :228,
+`_deform_delta_blocks` :262, `intersect_brute` :298, `shadow_blocked_brute`
 :544, `intersect_brute_occlusion` :588; `intersect_brute_mt` follows
 ops/pallas_intersect.py `_mt_block` :37 and `intersect_brute_pallas` :112).
 
@@ -17,7 +18,12 @@ triangles as the JAX package does: `intersect_brute` (closest hit),
 NEE's dual form: two masked minima and an any hit) and
 `intersect_brute_mt` (the Moeller-Trumbore arithmetic of the TPU kernel).
 They are the plain versions of csrc/dense_sweep.cu (ops/dense_sweep.py).
-Deform motion (per-ray time) is not ported.
+
+Deforming motion: the first three take tri_verts_t1, the triangles at
+shutter close (T, 3, 3) or at the S-1 uniform steps after shutter open
+(S-1, T, 3, 3), and the rays' times; each ray is tested against the
+triangles on their piecewise-linear path at its time, summed as clamped
+hat-weighted per-segment deltas of (v0, e1, e2) (`motion_components`).
 """
 
 from __future__ import annotations
@@ -163,21 +169,81 @@ def _blocks_per_step(nb, block, n):
     return max(1, min(nb, _STEP_ELEMS // max(block * n, 1)))
 
 
-def _wt_step(ws, v0, e1, e2, tmin, tmax):
-    """wt_block of G blocks against N lanes: v0/e1/e2 (G, B, 3), tmin
-    (N,), tmax (N,) or a float; returns (G, B, N) tensors."""
-    def comps(a):
-        return tuple(a[:, :, i, None] for i in range(3))
+def deform_deltas(tri_verts_steps, prim_object, v0b, e1b, e2b,
+                  block=TRI_BLOCK):
+    """Per-segment deltas of the blocked (v0, e1, e2): a list of S-1
+    triples, each (nb, block, 3), of step k's minus step k-1's (step 0:
+    the shutter-open blocks v0b, e1b, e2b). tri_verts_steps is (T, 3, 3)
+    (one segment) or (S-1, T, 3, 3); None gives None."""
+    if tri_verts_steps is None:
+        return None
+    steps = tri_verts_steps if tri_verts_steps.dim() == 4 \
+        else tri_verts_steps[None]
+    prev = (v0b, e1b, e2b)
+    out = []
+    for k in range(steps.shape[0]):
+        _, vb, f1, f2, _, _ = pack_tri_blocks(steps[k], prim_object, None,
+                                              block)
+        out.append((vb - prev[0], f1 - prev[1], f2 - prev[2]))
+        prev = (vb, f1, f2)
+    return out
 
+
+def segment_weight(time, k, s1):
+    """Weight of segment k of s1 at each ray's time: time itself for
+    one segment, else clip(time * s1 - k, 0, 1)."""
+    if s1 == 1:
+        return time
+    return torch.clamp(time * s1 - k, 0.0, 1.0)
+
+
+def motion_components(v0, e1, e2, deltas, time):
+    """Component triples of v0, e1, e2 ((G, B, 3) each) for wt_block:
+    (G, B, 1) without deltas, else (G, B, N) at each of the N rays' times,
+    v(t) = v + sum_k w_k(t) dv_k in segment order (the JAX package's
+    _motion_components)."""
+    def comps(a):
+        return [a[:, :, i, None] for i in range(3)]
+
+    v0c, e1c, e2c = comps(v0), comps(e1), comps(e2)
+    if deltas is not None:
+        for k, (dv0, de1, de2) in enumerate(deltas):
+            w = segment_weight(time, k, len(deltas))[None, None]
+            v0c = [v0c[i] + w * dv0[:, :, i, None] for i in range(3)]
+            e1c = [e1c[i] + w * de1[:, :, i, None] for i in range(3)]
+            e2c = [e2c[i] + w * de2[:, :, i, None] for i in range(3)]
+    return tuple(v0c), tuple(e1c), tuple(e2c)
+
+
+def tris_at(tri_verts, prim_object, steps, time):
+    """Component triples (v0, e1, e2) of the P triangles for wt_block,
+    with the sweeps' arithmetic: (1, P) each, or with steps ((S1, P, 3,
+    3)) and time (N,) each ray's triangles at its time, (N, P) each."""
+    _, v0, e1, e2, _, _ = pack_tri_blocks(tri_verts, prim_object, None, 1)
+    comps = motion_components(v0, e1, e2,
+                              deform_deltas(steps, prim_object, v0, e1, e2,
+                                            1), time)
+    return tuple(tuple(x[:, 0].T for x in c) for c in comps)
+
+
+def _wt_step(ws, v0, e1, e2, tmin, tmax, deltas=None, time=None):
+    """wt_block of G blocks against N lanes: v0/e1/e2 (G, B, 3), tmin
+    (N,), tmax (N,) or a float, deltas the blocks' per-segment deltas
+    (deform_deltas, sliced alike) or None; returns (G, B, N) tensors."""
     if torch.is_tensor(tmax):
         tmax = tmax[None, None]
-    return wt_block(ws, comps(v0), comps(e1), comps(e2), tmin[None, None],
-                    tmax)
+    return wt_block(ws, *motion_components(v0, e1, e2, deltas, time),
+                    tmin[None, None], tmax)
+
+
+def _step_deltas(deltas, sl):
+    return None if deltas is None else [
+        tuple(x[sl] for x in seg) for seg in deltas]
 
 
 def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
                     visibility=None, object_visibility=None,
-                    block=TRI_BLOCK):
+                    block=TRI_BLOCK, tri_verts_t1=None, time=None):
     """Dense closest hit of N rays against P world-space triangles.
 
     tri_verts (P, 3, 3) f32, prim_object (P,) int32; o, d (N, 3); tmin,
@@ -189,7 +255,8 @@ def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
     the highest index (u and v each to the largest of the tied), and a
     later block wins only with a strictly smaller t. Several blocks are
     tested at once against the best t before them, which selects the same
-    winner."""
+    winner. With tri_verts_t1 and time (N,) each ray is tested against
+    the triangles at its time."""
     n = o.shape[0]
     dev = o.device
     use_vis = visibility is not None and object_visibility is not None
@@ -197,6 +264,7 @@ def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
         tri_verts, prim_object,
         _prim_visibility(prim_object, object_visibility) if use_vis
         else None, block)
+    deltas = deform_deltas(tri_verts_t1, prim_object, v0b, e1b, e2b, block)
     ws = watertight_setup(o, d)
     t0 = torch.clamp(tmax, max=RAY_TMAX)
     t_best = t0
@@ -208,7 +276,8 @@ def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
     ninf = float("-inf")
     for b0 in range(0, nb, step):
         sl = slice(b0, b0 + step)
-        hit, t, u, v = _wt_step(ws, v0b[sl], e1b[sl], e2b[sl], tmin, t_best)
+        hit, t, u, v = _wt_step(ws, v0b[sl], e1b[sl], e2b[sl], tmin, t_best,
+                                _step_deltas(deltas, sl), time)
         hit = hit & (pob[sl, :, None] >= 0)
         if use_vis:
             hit = hit & ((pvb[sl, :, None] & visibility[None, None]) > 0)
@@ -240,21 +309,23 @@ def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
 
 def shadow_blocked_brute(tri_verts, prim_object, o, d, tmin, tmax,
                          visibility=None, object_visibility=None,
-                         block=TRI_BLOCK):
-    """Dense any hit inside (tmin, tmax): (N,) bool. Same masks as
-    intersect_brute, no winner."""
+                         block=TRI_BLOCK, tri_verts_t1=None, time=None):
+    """Dense any hit inside (tmin, tmax): (N,) bool. Same masks and
+    deforming motion as intersect_brute, no winner."""
     n = o.shape[0]
     use_vis = visibility is not None and object_visibility is not None
     nb, v0b, e1b, e2b, pob, pvb = pack_tri_blocks(
         tri_verts, prim_object,
         _prim_visibility(prim_object, object_visibility) if use_vis
         else None, block)
+    deltas = deform_deltas(tri_verts_t1, prim_object, v0b, e1b, e2b, block)
     ws = watertight_setup(o, d)
     blocked = torch.zeros(n, dtype=torch.bool, device=o.device)
     step = _blocks_per_step(nb, block, n)
     for b0 in range(0, nb, step):
         sl = slice(b0, b0 + step)
-        hit, _t, _u, _v = _wt_step(ws, v0b[sl], e1b[sl], e2b[sl], tmin, tmax)
+        hit, _t, _u, _v = _wt_step(ws, v0b[sl], e1b[sl], e2b[sl], tmin, tmax,
+                                   _step_deltas(deltas, sl), time)
         hit = hit & (pob[sl, :, None] >= 0)
         if use_vis:
             hit = hit & ((pvb[sl, :, None] & visibility[None, None]) > 0)
@@ -265,13 +336,15 @@ def shadow_blocked_brute(tri_verts, prim_object, o, d, tmin, tmax,
 def intersect_brute_occlusion(tri_verts, prim_object, boundary_mask,
                               o, d, tmin, tmax_closest, tmax_any,
                               visibility_closest, visibility_any,
-                              object_visibility, block=TRI_BLOCK):
+                              object_visibility, block=TRI_BLOCK,
+                              tri_verts_t1=None, time=None):
     """The volume NEE's dense sweep, no winner: (t_boundary, t_other,
     blocked). t_boundary / t_other are RAY_TMAX-capped minima of hit t
     over boundary / other prims (boundary_mask (P,) bool) visible to
     visibility_closest inside (tmin, tmax_closest); blocked is any hit
     visible to visibility_any inside (tmin, tmax_any). Every triangle is
-    tested against RAY_TMAX and windowed afterwards (t < tmax)."""
+    tested against RAY_TMAX and windowed afterwards (t < tmax); deforming
+    motion as in intersect_brute."""
     n = o.shape[0]
     dev = o.device
     nb, v0b, e1b, e2b, pob, pvb = pack_tri_blocks(
@@ -280,6 +353,7 @@ def intersect_brute_occlusion(tri_verts, prim_object, boundary_mask,
     pad = nb * block - tri_verts.shape[0]
     bm = torch.cat([boundary_mask.to(torch.bool), torch.zeros(
         pad, dtype=torch.bool, device=dev)]).reshape(nb, block)
+    deltas = deform_deltas(tri_verts_t1, prim_object, v0b, e1b, e2b, block)
     ws = watertight_setup(o, d)
     t_b = torch.full((n,), RAY_TMAX, device=dev)
     t_o = torch.full((n,), RAY_TMAX, device=dev)
@@ -288,7 +362,7 @@ def intersect_brute_occlusion(tri_verts, prim_object, boundary_mask,
     for b0 in range(0, nb, step):
         sl = slice(b0, b0 + step)
         geom, t, _u, _v = _wt_step(ws, v0b[sl], e1b[sl], e2b[sl], tmin,
-                                   RAY_TMAX)
+                                   RAY_TMAX, _step_deltas(deltas, sl), time)
         geom = geom & (pob[sl, :, None] >= 0)
         pv = pvb[sl, :, None]
         blocked = blocked | (

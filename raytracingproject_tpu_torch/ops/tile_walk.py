@@ -16,7 +16,10 @@ every lane whose prim and object do.
 JAX package's single-level cap, MAX_CLUSTERS (640), with or without
 instance rows (has_instances: a lane's ray is taken to the row's object
 space before the row's triangle tests; the boxes are world boxes, so the
-visit order needs nothing more); motion rows raise. With counts=True the
+visit order needs nothing more), or with motion rows (has_motion: each
+lane tests the row's triangles lerped to its time; the boxes cover both
+shutter ends, so again the visit order needs nothing more); motion rows
+with instance rows raise. With counts=True the
 counting variant runs and the call also returns (N, 4) int32 counts per
 lane: the rows its warp fetched (steps), the rows the lane tested, the
 cluster boxes it tested, and its box passes (CUDA tensors only).
@@ -54,24 +57,26 @@ NO_ID = 0x7FFFFFFF   # the id of an empty slot of LaneQueues
 
 def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
                             visibility, shadow_any_hit=False,
-                            has_instances=False, has_motion=False,
-                            counts=False):
+                            has_instances=False, time=None,
+                            has_motion=False, counts=False):
     """Closest hit (or any hit) over the cluster tables; returns dict
     t, u, v (f32) and prim, object (int32), (N,) each; with counts=True
     (hit dict, (N, 4) int32 counts: the steps of the lane's warp, the rows
     the lane tested, its box tests and its box passes)."""
     global launches
-    if has_motion:
-        raise NotImplementedError("motion cluster rows are not ported")
+    cw.no_motion_instances(has_instances, has_motion)
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit,
-                                     has_instances=bool(has_instances))
+                                     has_instances=bool(has_instances),
+                                     time=time, has_motion=bool(has_motion))
+    time = ci.lane_time(time, o.shape[0], has_motion, o.device)
     n, c, w = cw.check_walk_args(cbounds, ctable, cluster_tris, o, d, tmin,
-                                 tmax, visibility, max_clusters=MAX_CLUSTERS)
+                                 tmax, visibility, max_clusters=MAX_CLUSTERS,
+                                 time=time)
     dev = o.device
     cnt = torch.empty((n, 4), dtype=torch.int32, device=dev) \
         if counts else None
@@ -84,7 +89,9 @@ def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
         cbounds.data_ptr(), ctable.data_ptr(), c, w, int(cluster_tris),
         o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
         visibility.data_ptr(), n, int(bool(shadow_any_hit)),
-        int(bool(has_instances)), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+        int(bool(has_instances)), int(time is not None),
+        time.data_ptr() if time is not None else None, t.data_ptr(),
+        prim.data_ptr(), u.data_ptr(),
         v.data_ptr(), obj.data_ptr(), cnt.data_ptr() if counts else None,
         kernels.current_stream())
     kernels.check_rc("tile_walk", rc)
@@ -95,13 +102,17 @@ def intersect_clusters_tile(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
 
 # ---- the plain mirrors of the warp's visit order ----
 
-def pad_lanes(o, d, tmin, tmax, visibility):
+def pad_lanes(o, d, tmin, tmax, visibility, time=None):
     """The lanes padded to whole warps with the kernel's values for lanes
-    past n (origin 0, direction +x, window [0, -1], visibility 0);
-    returns (o, d, tmin, tmax, visibility, live)."""
+    past n (origin 0, direction +x, window [0, -1], visibility 0, time
+    0); returns (o, d, tmin, tmax, visibility, live) and, when time is
+    given, the padded time after them."""
     n = o.shape[0]
     pad = -n % TILE
     live = torch.ones(n + pad, dtype=torch.bool, device=o.device)
+    if time is not None:
+        tp = torch.cat([time, time.new_zeros(pad)])
+        return pad_lanes(o, d, tmin, tmax, visibility) + (tp,)
     if not pad:
         return o, d, tmin, tmax, visibility.to(torch.int32), live
     live[n:] = False
@@ -132,12 +143,13 @@ def lane_gate(hit, any_hit):
 
 
 def row_test(ctable, ct, cid, test, ws, tmin, visibility, hit,
-             o=None, d=None):
+             o=None, d=None, time=None):
     """Every lane where `test` holds tests the triangles of row cid[lane]
     in order with strict t < best (the kernels' sequential update, which
     is the first minimum of the masked t); updates `hit` in place. With o
     and d (instance rows) the lane's ray is first taken to the row's
-    object space; ws is the lanes' (N, 1) shear basis otherwise."""
+    object space; ws is the lanes' (N, 1) shear basis otherwise. With
+    time (motion rows) the triangles are lerped to the lane's time."""
     idx = test.nonzero()[:, 0]
     if idx.numel() == 0:
         return
@@ -147,10 +159,11 @@ def row_test(ctable, ct, cid, test, ws, tmin, visibility, hit,
     else:
         wsi = {k: (tuple(x[idx] for x in v) if isinstance(v, tuple)
                    else v[idx]) for k, v in ws.items()}
-    v0c, e1c, e2c = ci._row_tris(rows, ct)
+    v0c, e1c, e2c = ci._row_tris(rows, ct,
+                                 None if time is None else time[idx])
     valid, t, u, v = isect.wt_block(wsi, v0c, e1c, e2c, tmin[idx, None],
                                     hit["t"][idx, None])
-    pbase = ci.META_COLS + 9 * ct
+    pbase = ci.prim_col(ct, time is not None)
     pid = rows[:, pbase:pbase + ct]
     tri_vis = rows[:, pbase + 2 * ct:pbase + 3 * ct].to(torch.int32)
     ok = valid & (pid >= 0.0) & ((tri_vis & visibility[idx, None]) != 0)
@@ -256,9 +269,13 @@ class LaneQueues:
 
 
 def _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax, visibility,
-                shadow_any_hit, queue, has_instances=False):
+                shadow_any_hit, queue, has_instances=False, time=None,
+                has_motion=False):
     n, c = o.shape[0], cbounds.shape[0]
-    o, d, tmin, tmax, vis, live = pad_lanes(o, d, tmin, tmax, visibility)
+    time = ci.lane_time(time, n, has_motion, o.device)
+    o, d, tmin, tmax, vis, live, *tp = pad_lanes(o, d, tmin, tmax,
+                                                 visibility, time)
+    time = tp[0] if tp else None
     dev, lanes_n = o.device, o.shape[0]
     warp = torch.arange(lanes_n, device=dev) // TILE
     nw = lanes_n // TILE
@@ -291,7 +308,7 @@ def _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax, visibility,
             cnt[:, 2] += on   # the slab test of the picked cluster
         cnt[:, 1] += test
         row_test(ctable, cluster_tris, cl, test, ws, tmin, vis, hit,
-                 *((o, d) if has_instances else ()))
+                 *((o, d) if has_instances else (None, None)), time=time)
         wi = running.nonzero()[:, 0]
         retired[mc[wi], wi] = True
         cnt[:, 0] += on
@@ -301,7 +318,8 @@ def _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax, visibility,
 
 
 def tile_scan_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                    visibility, shadow_any_hit=False, has_instances=False):
+                    visibility, shadow_any_hit=False, has_instances=False,
+                    time=None, has_motion=False):
     """K4's earlier design as plain torch: lanes in warps of 32 in index
     order; each step every lane scans its column of the (C, 32) entry
     table for its first smallest unretired entry below its gate, the warp
@@ -309,16 +327,17 @@ def tile_scan_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
     own entry is below its gate tests that row, and the cluster is
     retired for the warp. With has_instances a lane tests a row with its
     ray taken to the row's object space (boxes are world boxes: the picks
-    need nothing more). Returns (hit dict, (N, 3) int32: the steps of
-    the lane's warp, the rows the lane tested, the entries its picks
-    read, C a pick)."""
+    need nothing more); with has_motion at the lane's time. Returns (hit
+    dict, (N, 3) int32: the steps of the lane's warp, the rows the lane
+    tested, the entries its picks read, C a pick)."""
     return _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                       visibility, shadow_any_hit, None, has_instances)
+                       visibility, shadow_any_hit, None, has_instances,
+                       time, has_motion)
 
 
 def tile_queue_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
                      visibility, shadow_any_hit=False, queue=QUEUE,
-                     has_instances=False):
+                     has_instances=False, time=None, has_motion=False):
     """K4's kernel as plain torch: the same warp walk, with each lane's
     pick taken from its queue of `queue` pairs (LaneQueues.head) and a
     retired bitmask per warp; every lane then tests its box of the picked
@@ -326,7 +345,8 @@ def tile_queue_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
     of the lane's warp, the rows the lane tested, its box tests, its box
     passes): the counts of intersect_clusters_tile(counts=True)."""
     return _tile_order(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
-                       visibility, shadow_any_hit, int(queue), has_instances)
+                       visibility, shadow_any_hit, int(queue), has_instances,
+                       time, has_motion)
 
 
 def grid_tables(c, ct, rng, device="cpu"):

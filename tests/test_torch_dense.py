@@ -408,10 +408,24 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         k1.shadow_blocked_sweep(*tri, *meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         k1.intersect_mt_sweep(*(torch.zeros((1, 8, 3)),) * 3, *meta)
-    # deform motion stays with the dof_motion_adaptive slice
-    for fn in (k1.intersect_brute_sweep, k1.shadow_blocked_sweep):
-        with pytest.raises(NotImplementedError, match="deform"):
-            fn(*tri, *rays, tri_verts_t1=tri[0], time=rays[2])
-    with pytest.raises(NotImplementedError, match="deform"):
-        k1.occlusion_sweep(*tri, _t(c["bnd"]), *rays, rays[3], None, None,
-                           _t(c["ov"]), time=rays[2])
+    # deform motion is ported: on CPU tensors each mode takes its plain
+    # version's deform sweep (the triangles moved by 5 along z at
+    # shutter close, each ray at its own time), and launches nothing
+    t1 = tri[0] + torch.tensor([0.0, 0.0, 5.0])
+    time = torch.linspace(0.0, 1.0, rays[0].shape[0])
+    before = dict(k1.launches)
+    for fn, plain in ((k1.intersect_brute_sweep, tisect.intersect_brute),
+                      (k1.shadow_blocked_sweep,
+                       tisect.shadow_blocked_brute)):
+        a = fn(*tri, *rays, tri_verts_t1=t1, time=time)
+        b = plain(*tri, *rays, tri_verts_t1=t1, time=time)
+        for x, y in (zip(a.values(), b.values()) if isinstance(a, dict)
+                     else [(a, b)]):
+            assert torch.equal(x, y)
+    vis4 = torch.full((rays[0].shape[0],), 1, dtype=torch.int32)
+    dual = (*tri, _t(c["bnd"]), *rays, rays[3], vis4, vis4, _t(c["ov"]))
+    for x, y in zip(k1.occlusion_sweep(*dual, tri_verts_t1=t1, time=time),
+                    tisect.intersect_brute_occlusion(
+                        *dual, tri_verts_t1=t1, time=time)):
+        assert torch.equal(x, y)
+    assert k1.launches == before

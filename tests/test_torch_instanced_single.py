@@ -19,7 +19,8 @@ This file holds:
   and light arrays), equal statics, and kg_from_jax converting both;
 - the dispatch: grid=6 sends its closest hits to K4 and its shadow tests
   to K3, grid=5 / nlat=15 to K2 and K3 (K7 in fused-NEE mode), every call
-  with has_instances; has_motion still raises in all four wrappers;
+  with has_instances; motion rows still raise with instance rows in K2,
+  K3 and K4, and alone in K5, K6 and K7;
 - on CPU tensors the four wrappers return their plain versions' results
   with instance rows and launch nothing;
 - K4's visit-order mirrors (ops/tile_walk.py tile_scan_order and
@@ -63,11 +64,13 @@ from raytracingproject_tpu_torch.models import object as ob
 from raytracingproject_tpu_torch.models.scene import (
     KG_ARRAYS, KG_DENSE, kg_from_jax)
 from raytracingproject_tpu_torch.ops import camera as cam_ops
+from raytracingproject_tpu_torch.ops import cluster2_walk as k5
 from raytracingproject_tpu_torch.ops import cluster_intersect as tci
 from raytracingproject_tpu_torch.ops import cluster_walk as k2
 from raytracingproject_tpu_torch.ops import dual_walk as k7
 from raytracingproject_tpu_torch.ops import integrator as integ
 from raytracingproject_tpu_torch.ops import occlusion_walk as k3
+from raytracingproject_tpu_torch.ops import onehot2_walk as k6
 from raytracingproject_tpu_torch.ops import tile_walk as k4
 from raytracingproject_tpu_torch.session.session import pixel_wavefront
 
@@ -317,9 +320,10 @@ def _meta(shape, dtype=torch.float32):
 
 
 def test_motion_rows_still_raise():
-    """has_motion raises in all four wrappers (before they look at the
-    device), and in the integrator's scene check; the message names
-    motion rows only."""
+    """What still refuses motion rows, before looking at the device:
+    K2, K4 and K3 with instance rows (the JAX package packs no table of
+    moving instances), K7, K5 and K6 on their own (not ported); fused-NEE
+    mode never serves a scene with them."""
     kg = port_kg("grid5_nlat15")
     ds = kg["dscene"]
     cb, ctab, cbd = ds["cluster_bounds"], ds["cluster_table"], \
@@ -327,22 +331,32 @@ def test_motion_rows_still_raise():
     ct = kg["cluster_tris"]
     o, t = torch.zeros((4, 3)), torch.zeros(4)
     vis = torch.ones(4, dtype=torch.int32)
+    both = {"has_instances": True, "has_motion": True}
     calls = (
         lambda: k2.intersect_clusters_walk(cb, ctab, ct, o, o, t, t, vis,
-                                           has_motion=True),
+                                           **both),
         lambda: k4.intersect_clusters_tile(cb, ctab, ct, o, o, t, t, vis,
-                                           has_motion=True),
+                                           **both),
         lambda: k3.occlusion_clusters_walk(cb, ctab, cbd, ct, o, o, t, t, t,
-                                           1, 128, has_motion=True),
-        lambda: k7.intersect_clusters_dual_walk(cb, ctab, ct, o, o, t, t,
-                                                vis, o, o, t, t, vis,
-                                                has_motion=True))
+                                           1, 128, **both))
     for call in calls:
         with pytest.raises(NotImplementedError,
-                           match="^motion cluster rows are not ported$"):
+                           match="^motion rows with instance rows"):
             call()
-    with pytest.raises(NotImplementedError, match="motion"):
-        integ._check_cluster_scene({**kg, "cluster_motion": True})
+    calls = (
+        ("K7", lambda: k7.intersect_clusters_dual_walk(
+            cb, ctab, ct, o, o, t, t, vis, o, o, t, t, vis,
+            has_motion=True)),
+        ("K5", lambda: k5.intersect_clusters2_walk(
+            cb, cb, ctab, ct, 8, o, o, t, t, vis, has_motion=True)),
+        ("K6", lambda: k6.intersect_clusters2_onehot(
+            cb, cb, ctab, ct, 8, o, o, t, t, vis, has_motion=True)))
+    for name, call in calls:
+        with pytest.raises(NotImplementedError,
+                           match=f"^motion rows in {name} are not ported"):
+            call()
+    assert not integ._use_fused_nee(
+        {**kg, "fused_nee": True, "cluster_motion": True})
 
 
 def test_wrappers_refuse_meta_tensors_with_instance_rows():

@@ -217,9 +217,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
                                    meta["cluster_boundary"], CT, o, o, t1,
                                    t1, t1, 1, 128)
     cb = _t(tabs["cluster_bounds"])
+    # motion rows never carry instances (no such table is packed)
     with pytest.raises(NotImplementedError):
         k2.intersect_clusters_walk(cb, cb, CT, cb, cb, cb, cb, cb,
-                                   has_motion=True)
+                                   has_instances=True, has_motion=True)
     with pytest.raises(NotImplementedError):
         k3.occlusion_clusters_walk(cb, cb, cb, CT, cb, cb, cb, cb, cb, 1, 1,
-                                   has_motion=True)
+                                   has_instances=True, has_motion=True)

@@ -676,3 +676,181 @@ def test_tile_walk_kernel_in_scan_order_with_instance_rows(kg_single,
             o, d, tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
     _in_scan_order(k4, k4.intersect_clusters_tile, k4.tile_scan_order,
                    k4.tile_queue_order, args, any_hit, True)
+
+
+# ---- deforming motion: motion rows (K2, K3, K4) and K1's deform modes --
+
+
+@pytest.fixture(scope="module")
+def kg_deform():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    out = {}
+    for name, fn in (("glossy", examples.glossy_deform_scene),
+                     ("cornell", examples.cornell_deform_scene)):
+        s = fn(64, 64, spp=2)
+        s.device_update()
+        out[name] = s.make_kernel_globals("cuda")
+        assert out[name]["has_deform_motion"]
+    assert out["glossy"]["cluster_motion"]
+    return out
+
+
+def _times(seed):
+    return torch.tensor(np.random.default_rng(seed).uniform(0.0, 1.0, N)
+                        .astype(np.float32), device="cuda")
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_kernels_with_motion_rows(kg_deform, kernel, any_hit):
+    """K2 and K4 on glossy_deform's motion table, random rays at random
+    times: to the bit against the plain motion walk (K4 off exact-t
+    ties; tests/test_torch_deform.py holds it to its scan mirror)."""
+    module, fn = {"K2": (k2, k2.intersect_clusters_walk),
+                  "K4": (k4, k4.intersect_clusters_tile)}[kernel]
+    kg = kg_deform["glossy"]
+    ds = kg["dscene"]
+    o, d, tmax_any, _ = _rays(41, lo=0.0, hi=556.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"],
+            o, d, tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
+    kw = {"shadow_any_hit": any_hit, "has_motion": True,
+          "time": _times(42)}
+    before = module.launches
+    got = fn(*args, **kw)
+    ref = ci.intersect_clusters(*args, **kw)
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    if any_hit:
+        assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
+        return
+    _assert_to_the_bit(got, ref)
+    if kernel == "K2":
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tile_walk_kernel_in_scan_order_with_motion_rows(kg_deform, any_hit):
+    kg = kg_deform["glossy"]
+    ds = kg["dscene"]
+    o, d, tmax_any, _ = _rays(43, lo=0.0, hi=556.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], kg["cluster_tris"],
+            o, d, tmin, tmax, torch.ones(N, dtype=torch.int32, device="cuda"))
+    tm = _times(44)
+    kw = {"shadow_any_hit": any_hit, "has_motion": True, "time": tm}
+    got = k4.intersect_clusters_tile(*args, **kw)
+    got_c, cnt = k4.intersect_clusters_tile(*args, counts=True, **kw)
+    ref, _ = k4.tile_scan_order(*args, **kw)
+    _, qcnt = k4.tile_queue_order(*args, **kw)
+    torch.cuda.synchronize()
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got_c[k], got[k]), k
+    assert torch.equal(cnt, qcnt)
+
+
+@pytest.mark.parametrize("form", ["surface", "dual"])
+def test_occlusion_walk_kernel_with_motion_rows(kg_deform, form):
+    kg = kg_deform["glossy"]
+    ds = kg["dscene"]
+    o, d, tmax_any, _ = _rays(45, lo=0.0, hi=556.0)
+    tmax_c = torch.where(tmax_any < 1e29, tmax_any, 300.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    cbd = torch.tensor(np.random.default_rng(46).integers(
+        0, 2, ds["cluster_boundary"].shape).astype(np.float32),
+        device="cuda")
+    args = (ds["cluster_bounds"], ds["cluster_table"], cbd,
+            kg["cluster_tris"], o, d, tmin,
+            tmin if form == "surface" else tmax_c, tmax_any, 1, 128)
+    kw = {"has_motion": True, "time": _times(47)}
+    before = k3.launches
+    got = k3.occlusion_clusters_walk(*args, **kw)
+    ref = ci.occlusion_clusters(*args, **kw)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert 0.05 < ref[2].float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("path", ["two_step", "three_step"])
+@pytest.mark.parametrize("mode", ["closest", "any", "dual"])
+def test_dense_sweep_kernel_deform(kg_deform, path, mode):
+    """K1's deform modes on cornell_deform's path (and its last step
+    alone, a two-step path), random rays at random times, mixed
+    visibility: every output to the bit; the counting variant keeps them
+    and its kept blocks are block_keep's mirror's."""
+    kg = kg_deform["cornell"]
+    ds = kg["dscene"]
+    steps = ds["tri_verts_world_steps"]
+    if path == "two_step":
+        steps = steps[-1:].contiguous()
+    o, d, _tmax_any, _ = _rays(48, lo=0.0, hi=556.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    args = _dense_args(kg, mode, o, d, tmin, 49)
+    kw = {"tri_verts_t1": steps, "time": _times(50)}
+    wrap, plain = K1_WRAPPER[mode]
+    before = k1.launches[mode]
+    got = wrap(*args, **kw)
+    got_c = wrap(*args, counts=True, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert k1.launches[mode] == before + 2
+    for a, b in zip(_outputs(got), _outputs(ref)):
+        assert torch.equal(a, b)
+    cnt = got_c[-1]
+    for a, b in zip(_outputs(got_c[0] if mode != "dual" else got_c[:3]),
+                    _outputs(got)):
+        assert torch.equal(a, b)
+    names = {"closest": ("tri_verts", "prim_object", "o", "d", "tmin",
+                         "tmax", "visibility", "object_visibility"),
+             "any": ("tri_verts", "prim_object", "o", "d", "tmin", "tmax",
+                     "visibility", "object_visibility"),
+             "dual": ("tri_verts", "prim_object", "boundary_mask", "o",
+                      "d", "tmin", "tmax_closest", "tmax_any",
+                      "visibility_closest", "visibility_any",
+                      "object_visibility")}[mode]
+    a = dict(zip(names, args), **kw)
+    kept, tested = k1.kept_blocks(mode, a)
+    assert torch.equal(cnt[:, 1], kept.sum(1).to(torch.int32))
+    if tested is not None:
+        assert torch.equal(cnt[:, 0], tested)
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_dense_sweep_kernel_deform_far_moving_quad(kg_deform, mode):
+    """A quad of extent 2 sliding 10 along x over the shutter (one block,
+    moving five times its extent, past even the shutter-open wide box),
+    rays aimed where it is at their times: the kernel keeps the block
+    through its boxes over every step and equals the plain sweep to the
+    bit, hitting nearly every lane."""
+    quad = torch.tensor([[[-1, -1, 0], [1, -1, 0], [1, 1, 0]],
+                         [[-1, -1, 0], [1, 1, 0], [-1, 1, 0]]],
+                        dtype=torch.float32, device="cuda")
+    steps = (quad + torch.tensor([10.0, 0.0, 0.0], device="cuda"))[None]
+    r = np.random.default_rng(51)
+    tm = r.uniform(0.0, 1.0, N).astype(np.float32)
+    p = np.stack([10.0 * tm + r.uniform(-0.8, 0.8, N),
+                  r.uniform(-0.8, 0.8, N), np.zeros(N)], 1)
+    d = np.concatenate([r.normal(0.0, 0.05, (N, 2)), -np.ones((N, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = torch.tensor((p - 5.0 * d).astype(np.float32), device="cuda")
+    d = torch.tensor(d.astype(np.float32), device="cuda")
+    po = torch.zeros(2, dtype=torch.int32, device="cuda")
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = torch.full((N,), 1e30, device="cuda")
+    kw = {"tri_verts_t1": steps.contiguous(),
+          "time": torch.tensor(tm, device="cuda")}
+    wrap, plain = K1_WRAPPER[mode]
+    got = wrap(quad, po, o, d, tmin, tmax, **kw)
+    ref = plain(quad, po, o, d, tmin, tmax, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(_outputs(got), _outputs(ref)):
+        assert torch.equal(a, b)
+    hit = ref["prim"] >= 0 if mode == "closest" else ref
+    assert hit.float().mean().item() > 0.95

@@ -15,8 +15,11 @@ third, the textured_instanced scene (example:textured_instanced: 8,450
 prims built by the port's own C++ BVH builder) renders 8x8 at 2 spp
 through the CLI's scene loader, and instanced_scene(grid=6)
 (example:instanced_grid6: a single-level table with instance rows, K4's
-and K3's plain versions) 8x8 at 1 spp. The sources import neither jax
-nor anything of the JAX package."""
+and K3's plain versions) 8x8 at 1 spp. In a fourth, the two deforming
+scenes (example:glossy_deform: motion cluster rows; example:cornell_deform:
+a three-step path on the dense sweep) render 8x8 at 1 spp through the
+CLI's scene loader. The sources import neither jax nor anything of the
+JAX package."""
 
 import os
 import re
@@ -160,6 +163,48 @@ assert img6.shape == (8, 8, 3) and np.isfinite(img6).all() and img6.mean() > 0
 assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
 print("NOJAX_TEXTURED_OK", float(img.mean()), float(img6.mean()))
 """
+
+
+DEFORM_SCRIPT = r"""
+import importlib, importlib.abc, sys
+
+BLOCKED = ("jax", "jaxlib", "raytracingproject_tpu")
+
+class BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, BlockJax())
+import numpy as np
+from raytracingproject_tpu_torch.app import cli
+from raytracingproject_tpu_torch.session.session import render
+means = []
+for spec in ("example:glossy_deform", "example:cornell_deform"):
+    sc, flags = cli.load_scene(spec)
+    assert not flags
+    sc.camera.set("width", 8)
+    sc.camera.set("height", 8)
+    sc.device_update()
+    kg = sc.make_kernel_globals("cpu")
+    assert kg["has_deform_motion"]
+    assert kg["cluster_motion"] == (spec == "example:glossy_deform")
+    img = render(sc, samples=1, chunk=1, device="cpu", kg=kg)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
+    means.append(float(img.mean()))
+assert not [k for k in sys.modules if k.split(".")[0] in BLOCKED]
+print("NOJAX_DEFORM_OK", *means)
+"""
+
+
+def test_deform_slice_renders_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", DEFORM_SCRIPT], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "NOJAX_DEFORM_OK" in r.stdout
 
 
 def test_textured_slice_renders_without_jax():

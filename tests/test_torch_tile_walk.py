@@ -202,6 +202,7 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take(tables):
                                    meta["cluster_table"], ct, o, o, t1, t1,
                                    vis)
     cb = _t(tabs["cluster_bounds"])
+    # motion rows never carry instances (no such table is packed)
     with pytest.raises(NotImplementedError):
         k4.intersect_clusters_tile(cb, cb, ct, cb, cb, cb, cb, cb,
-                                   has_motion=True)
+                                   has_instances=True, has_motion=True)
