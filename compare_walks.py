@@ -161,6 +161,10 @@ def launch(fn, src, inp, counts=None):
                 a["sc_bounds"].shape[0], c, w, int(a["cluster_tris"]),
                 int(a["gmax"]),
                 *ray, n, int(inp["any_hit"]), 1, *res]
+        if len(fn.argtypes) - len(argv) - 2 == 2:
+            # a tree whose K5 / K6 take motion rows: a flag and the
+            # lanes' times after the instance flag (instance rows here)
+            argv[16:16] = [0, None]
     if len(fn.argtypes) == len(argv) + 2:
         argv.append(counts.data_ptr() if counts is not None else None)
     rc = fn(*argv, kernels.current_stream())

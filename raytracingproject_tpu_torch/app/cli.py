@@ -20,6 +20,8 @@
       --chunk 32 --device cuda
   python -m raytracingproject_tpu_torch example:cornell_deform \\
       --chunk 32 --device cuda
+  python -m raytracingproject_tpu_torch example:glossy_deform_big[:onehot2] \\
+      --chunk 32 --device cuda
 
 Renders an example scene with the port and prints Msamples/s (pixels x
 samples over the render's wall time, host compile excluded).
@@ -59,6 +61,10 @@ over the shutter (256x256, 64 spp; motion cluster rows, 179 clusters x
 time); with :tile the closest hit takes K4 (examples.GLOSSY_DEFORM_TILE).
 example:cornell_deform is the Cornell box with its short box on a
 three-step path (36 prims: K1's deform modes).
+example:glossy_deform_big is glossy_deform with a 41,580-triangle mirror
+sphere (256x256, 64 spp; two-level motion tables, 936 clusters x 64 in 25
+superclusters: K5 for the closest hit and the shadow test, at each ray's
+time); with :onehot2 both take K6 (examples.GLOSSY_DEFORM_BIG_ONEHOT2).
 """
 
 from __future__ import annotations
@@ -84,7 +90,8 @@ def build_parser():
                    "'example:instanced_grid6' | "
                    "'example:instanced_grid5_nlat15[:fused]' | "
                    "'example:glossy_deform[:tile]' | "
-                   "'example:cornell_deform'")
+                   "'example:cornell_deform' | "
+                   "'example:glossy_deform_big[:onehot2]'")
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -125,6 +132,10 @@ def load_scene(spec):
                 examples.GLOSSY_DEFORM_TILE if parts[2:] else {})
     if parts == ["example", "cornell_deform"]:
         return examples.cornell_deform_scene(256, 256, spp=64), {}
+    if parts[:2] == ["example", "glossy_deform_big"] \
+            and parts[2:] in ([], ["onehot2"]):
+        return (examples.glossy_deform_big_scene(256, 256, spp=64),
+                examples.GLOSSY_DEFORM_BIG_ONEHOT2 if parts[2:] else {})
     if parts == ["example", "cornell", "glossy", "fused"]:
         return examples.cornell_box(spheres="glossy"), examples.GLOSSY_FUSED
     if parts[:2] != ["example", "cornell"] or len(parts) > 3:
@@ -134,8 +145,9 @@ def load_scene(spec):
                          "example:dof_motion, example:textured_instanced, "
                          "example:instanced_grid6, "
                          "example:instanced_grid5_nlat15[:fused], "
-                         "example:glossy_deform[:tile] or "
-                         "example:cornell_deform)")
+                         "example:glossy_deform[:tile], "
+                         "example:cornell_deform or "
+                         "example:glossy_deform_big[:onehot2])")
     return (examples.cornell_box(spheres=parts[2] if len(parts) > 2
                                  else None), {})
 

@@ -15,9 +15,11 @@ a constant sky; at its default grid=4 the textured_instanced
 configuration, 16 of them compiled flattened; at grid=6, and at grid=5
 with nlat=15, instanced with single-level tables), and the two deforming
 scenes: `glossy_deform_scene` (the glossy box whose mirror sphere grows
-and moves over the shutter: motion cluster rows, K2 and K3) and
-`cornell_deform_scene` (the Cornell box whose short box rises and slides
-on a three-step path: the dense sweep K1's deform modes). Variants that need
+and moves over the shutter: motion cluster rows, K2 and K3),
+`glossy_deform_big_scene` (the same with a 41,580-triangle mirror sphere:
+two-level motion tables, K5) and `cornell_deform_scene` (the Cornell box
+whose short box rises and slides on a three-step path: the dense sweep
+K1's deform modes). Variants that need
 unported features (glass spheres, an area lamp) raise
 NotImplementedError.
 
@@ -31,7 +33,8 @@ FUSED_NEE opts a scene into fused-NEE mode: one union walk (K7) per
 bounce answers the shadow test and the next closest hit; GLOSSY_FUSED is
 it for the glossy Cornell box. GLOSSY_DEFORM_TILE sends glossy_deform's
 closest hits to the tile-shared walk (K4) in place of K2, the JAX
-package's dispatch without its one-hot tables.
+package's dispatch without its one-hot tables. GLOSSY_DEFORM_BIG_ONEHOT2
+opts glossy_deform_big into K6 in place of K5.
 """
 
 from __future__ import annotations
@@ -195,6 +198,9 @@ BIG_INSTANCED_ONEHOT2 = {"pallas_onehot2": True}
 FUSED_NEE = {"fused_nee": True}
 GLOSSY_FUSED = FUSED_NEE
 GLOSSY_DEFORM_TILE = {"pallas_onehot": False}
+GLOSSY_DEFORM_BIG_ONEHOT2 = {"pallas_onehot2": True}
+# the mirror sphere of glossy_deform_big_scene: 41,580 triangles
+BIG_SPHERE = {"nlat": 100, "nlon": 210}
 
 
 def find_mesh(scene, name):
@@ -224,6 +230,34 @@ def glossy_deform_scene(width=256, height=256, spp=64):
     host compile packs motion cluster rows, 179 clusters x 15; K2 for
     every closest hit, K3 for every shadow test."""
     scene = cornell_box(width, height, spp, spheres="glossy")
+    mesh = find_mesh(scene, "sphere1")
+    mesh.attribute_set("std_motion_vertex_position", "vertex",
+                       glossy_deform_path(mesh.verts_array))
+    return scene
+
+
+def glossy_big_scene(width=256, height=256, spp=64):
+    """The glossy Cornell box with its mirror sphere rebuilt finer
+    (make_sphere_mesh at BIG_SPHERE: 41,580 smooth triangles, 42,552
+    prims in all), static: glossy_deform_big_scene at shutter open, whose
+    tables its motion tables equal at time 0."""
+    scene = cornell_box(width, height, spp, spheres="glossy")
+    obj = next(o for o in scene.objects if o.name == "sphere1")
+    mesh = make_sphere_mesh((185, 170, 90), 90, 0, name="sphere1",
+                            **BIG_SPHERE)
+    mesh.set("smooth", np.ones(mesh.num_triangles, bool))
+    mesh.used_shaders = obj.geometry.used_shaders
+    obj.geometry = mesh
+    return scene
+
+
+def glossy_deform_big_scene(width=256, height=256, spp=64):
+    """glossy_big_scene with its mirror sphere on glossy_deform_path:
+    the ct=64 cut passes the single-level cap, so the host compile packs
+    two-level motion tables, 936 clusters x 64 in 25 superclusters (gmax
+    64); K5 for every closest hit and shadow test (K6 under
+    GLOSSY_DEFORM_BIG_ONEHOT2)."""
+    scene = glossy_big_scene(width, height, spp)
     mesh = find_mesh(scene, "sphere1")
     mesh.attribute_set("std_motion_vertex_position", "vertex",
                        glossy_deform_path(mesh.verts_array))

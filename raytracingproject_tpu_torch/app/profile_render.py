@@ -5,7 +5,8 @@
                  volume_sss_dense|big_instanced_onehot2|dof_motion|
                  textured_instanced|instanced_grid6|instanced_grid5_nlat15|
                  instanced_grid5_nlat15_fused|glossy_deform|
-                 glossy_deform_tile|cornell_deform]
+                 glossy_deform_tile|cornell_deform|glossy_deform_big|
+                 glossy_deform_big_onehot2]
         [--device cuda]
         [--out profile.json]
 
@@ -37,7 +38,10 @@ the same in fused-NEE mode through K7; `glossy_deform` is
 example:glossy_deform at 256x256 (motion cluster rows, 179 x 15) through
 K2 and K3, `glossy_deform_tile` the same through K4 and K3, and
 `cornell_deform` example:cornell_deform at 256x256 (36 prims on a
-three-step path) through K1's deform modes, closest and any hit.
+three-step path) through K1's deform modes, closest and any hit;
+`glossy_deform_big` is example:glossy_deform_big at 256x256 (two-level
+motion tables, 936 x 64) through K5, which answers both the closest hit
+and the shadow test, `glossy_deform_big_onehot2` the same through K6.
 
 1. a warm-up chunk of 4 samples (builds the kernels);
 2. one chunk of 16 samples on the host clock, ending in a device
@@ -112,6 +116,11 @@ SCENES = {
                            "tile_walk_kernel", 1, K3_KERNEL, 0),
     "cornell_deform": ("example:cornell_deform", 256, "dense_sweep",
                        K1_CLOSEST, 1, K1_ANY, 0),
+    "glossy_deform_big": ("example:glossy_deform_big", 256, "cluster2_walk",
+                          "cluster2_walk_kernel", 2, None, 0),
+    "glossy_deform_big_onehot2": ("example:glossy_deform_big:onehot2", 256,
+                                  "onehot2_walk", "onehot2_walk_kernel", 2,
+                                  None, 0),
 }
 
 

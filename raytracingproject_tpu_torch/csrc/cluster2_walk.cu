@@ -1,5 +1,5 @@
 // K5: two-level tile-shared cluster walk over superclusters and their
-// clusters, closest hit or any hit, with instance rows.
+// clusters, closest hit or any hit, with instance rows or motion rows.
 //
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_cluster.py
 // intersect_clusters2_pallas / _cluster2_kernel. Same contract as the
@@ -47,6 +47,18 @@
 // The bytes the function must move (rays, results, 2 MB of tables) take
 // about a microsecond at 3.35 TB/s.
 //
+// Motion rows (MOT; the TPU kernel's has_motion branch, pallas_cluster.py
+// :432): a row is 13 + 21 ct floats, each triangle's shutter deltas after
+// the triangles, its prim ids from 13 + 18 ct (1,357 floats, 5.4 KB, at
+// ct = 64: the staged row grows from 13 + 12 ct). Supercluster and
+// cluster boxes cover both shutter ends, so the queues, the group table
+// and the warp's picks do not change (the mirrors take the same picks); a
+// lane that tests the staged row lerps each triangle to its time, v +
+// time * dv per component (watertight.cuh wt_tri_at, as K2-K4), the plain
+// version's order. Motion rows never carry instances (the entry point
+// refuses the two together). Shared memory at SC = 25, gmax = 64: 800
+// bytes of supercluster table and 13,620 a warp, 55 KB a block of 4.
+//
 // The counting variant (COUNT) writes per lane the superclusters its warp
 // entered, the group tables it filled, the rows its warp fetched, the rows
 // it tested, the w2o transforms it computed and its supercluster passes,
@@ -71,13 +83,14 @@
 #define K5_QUEUE 4
 #endif
 
-template <int Q, bool COUNT>
+template <int Q, bool COUNT, bool MOT>
 __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
     const float* __restrict__ scb, const float* __restrict__ cbounds,
     const float* __restrict__ ctable, int SC, int C, int W, int ct, int gmax,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin_a, const float* __restrict__ tmax_a,
-    const int* __restrict__ vis_a, int n, int any_hit, int instances,
+    const int* __restrict__ vis_a, const float* __restrict__ time_a, int n,
+    int any_hit, int instances,
     float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ obj_out, int* __restrict__ counts) {
@@ -102,6 +115,7 @@ __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
     const float tmin = live ? tmin_a[i] : 0.0f;
     const float tmax = live ? tmax_a[i] : -1.0f;
     const int vis = live ? vis_a[i] : 0;
+    const float tm = (MOT && live) ? time_a[i] : 0.0f;
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
     auto sc_entry_of = [&](int s) {
@@ -113,7 +127,7 @@ __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
     int bp = -1, bo = -1;
     int entered = 0, fills = 0, fetched = 0, rows = 0, xforms = 0,
         passes = 0, boxes = 0;
-    const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
+    const int pbase = rt_prim_col(ct, MOT), obase = pbase + ct,
               vbase = obase + ct;
     // the lane's gate: entries below its best t; none once an any-hit lane
     // has its hit
@@ -163,9 +177,14 @@ __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
                     if (((int)row[vbase + k] & vis) == 0) continue;
                     const float* tri = row + RT_META_COLS + 9 * k;
                     float t, u, v;
-                    if (wt_tri_v(w, tri[0], tri[1], tri[2], tri[3], tri[4],
-                                 tri[5], tri[6], tri[7], tri[8], tmin, bt,
-                                 &t, &u, &v)) {
+                    const bool hit =
+                        MOT ? wt_tri_at<true>(w, tri,
+                                              row + RT_META_COLS + 9 * (ct + k),
+                                              tm, tmin, bt, &t, &u, &v)
+                            : wt_tri_v(w, tri[0], tri[1], tri[2], tri[3],
+                                       tri[4], tri[5], tri[6], tri[7], tri[8],
+                                       tmin, bt, &t, &u, &v);
+                    if (hit) {
                         bt = t;
                         bp = (int)pid;
                         bu = u;
@@ -200,13 +219,13 @@ __global__ void __launch_bounds__(K5_WARPS* TILE) cluster2_walk_kernel(
     }
 }
 
-template <bool COUNT>
+template <bool COUNT, bool MOT>
 static int launch(const float* scb, const float* cbounds, const float* ctable,
                   int SC, int C, int W, int ct, int gmax, const float* o,
                   const float* d, const float* tmin, const float* tmax,
-                  const int* vis, int n, int any_hit, int instances, float* t,
-                  int* prim, float* u, float* v, int* obj, int* counts,
-                  cudaStream_t stream) {
+                  const int* vis, const float* time, int n, int any_hit,
+                  int instances, float* t, int* prim, float* u, float* v,
+                  int* obj, int* counts, cudaStream_t stream) {
     // the supercluster table, then per warp the group table and a row; up
     // to K5_WARPS warps a block within the 227 KB a block can have (the
     // bitmasks are static)
@@ -219,32 +238,34 @@ static int launch(const float* scb, const float* cbounds, const float* ctable,
     if (warps > K5_WARPS) warps = K5_WARPS;
     const size_t smem = fixed + per_warp * warps;
     cudaError_t err = cudaFuncSetAttribute(
-        cluster2_walk_kernel<K5_QUEUE, COUNT>,
+        cluster2_walk_kernel<K5_QUEUE, COUNT, MOT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int block = warps * TILE;
     const int grid = (n + block - 1) / block;
-    cluster2_walk_kernel<K5_QUEUE, COUNT><<<grid, block, smem, stream>>>(
-        scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin, tmax, vis, n,
-        any_hit, instances, t, prim, u, v, obj, counts);
+    cluster2_walk_kernel<K5_QUEUE, COUNT, MOT><<<grid, block, smem, stream>>>(
+        scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin, tmax, vis, time,
+        n, any_hit, instances, t, prim, u, v, obj, counts);
     return (int)cudaGetLastError();
 }
 
+// time: (N,) f32 with motion rows (motion != 0), else null; counts: (N, 6)
+// int32, or null (the counting variant runs when given).
 extern "C" int rt_cluster2_walk(const float* scb, const float* cbounds,
                                 const float* ctable, int SC, int C, int W,
                                 int ct, int gmax, const float* o,
                                 const float* d, const float* tmin,
                                 const float* tmax, const int* vis, int n,
-                                int any_hit, int instances, float* t,
-                                int* prim, float* u, float* v, int* obj,
-                                int* counts, void* stream) {
+                                int any_hit, int instances, int motion,
+                                const float* time, float* t, int* prim,
+                                float* u, float* v, int* obj, int* counts,
+                                void* stream) {
     if (n <= 0) return 0;
     if (SC > K5_MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
-    if (counts)
-        return launch<true>(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d,
-                            tmin, tmax, vis, n, any_hit, instances, t, prim,
-                            u, v, obj, counts, (cudaStream_t)stream);
-    return launch<false>(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin,
-                         tmax, vis, n, any_hit, instances, t, prim, u, v, obj,
-                         counts, (cudaStream_t)stream);
+    if (instances && motion) return (int)cudaErrorInvalidValue;
+    auto* fn = counts ? (motion ? launch<true, true> : launch<true, false>)
+                      : (motion ? launch<false, true> : launch<false, false>);
+    return fn(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin, tmax, vis,
+              time, n, any_hit, instances, t, prim, u, v, obj, counts,
+              (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
 // K6: two-level cluster walk with a tile-shared supercluster pick and a
 // per-lane walk inside each picked group; closest hit or any hit, with
-// instance rows.
+// instance rows or motion rows.
 //
 // Replaces the TPU kernel raytracingproject_tpu/ops/pallas_onehot.py
 // intersect_clusters2_onehot / _onehot2_kernel. Same contract as the plain
@@ -61,6 +61,17 @@
 // steps against the lanes'). The bytes (rays, results, tables once) take
 // about a microsecond at 3.35 TB/s.
 //
+// Motion rows (MOT; the TPU kernel's has_motion branch, pallas_onehot.py
+// :415 and :515): a row is 13 + 21 ct floats, each triangle's shutter
+// deltas after the triangles, its prim ids from 13 + 18 ct. Boxes cover
+// both shutter ends, so the supercluster queues and each lane's key order
+// do not change (the mirrors take the same visits); a lane lerps each
+// triangle it tests to its time, v + time * dv per component (watertight.cuh
+// wt_tri_at, as K2-K5), the plain version's order. Motion rows never carry
+// instances (the entry point refuses the two together). The TPU kernel
+// reads a row through its bf16 thirds; this one reads the f32 row, so the
+// row's width changes no shared memory here.
+//
 // The counting variant (COUNT) writes per lane the superclusters its warp
 // entered, the groups it walked, its group-level box tests and box
 // passes, the rows it read, the rows it tested (at least one triangle not
@@ -92,13 +103,14 @@
 #define K6_GQUEUE 8
 #endif
 
-template <int Q, int GQ, bool COUNT>
+template <int Q, int GQ, bool COUNT, bool MOT>
 __global__ void __launch_bounds__(K6_WARPS* TILE) onehot2_walk_kernel(
     const float* __restrict__ scb, const float* __restrict__ cbounds,
     const float* __restrict__ ctable, int SC, int C, int W, int ct, int gmax,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin_a, const float* __restrict__ tmax_a,
-    const int* __restrict__ vis_a, int n, int any_hit, int instances,
+    const int* __restrict__ vis_a, const float* __restrict__ time_a, int n,
+    int any_hit, int instances,
     float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ obj_out, int* __restrict__ counts) {
@@ -122,6 +134,7 @@ __global__ void __launch_bounds__(K6_WARPS* TILE) onehot2_walk_kernel(
     const float tmin = live ? tmin_a[i] : 0.0f;
     const float tmax = live ? tmax_a[i] : -1.0f;
     const int vis = live ? vis_a[i] : 0;
+    const float tm = (MOT && live) ? time_a[i] : 0.0f;
     const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     WtRay w = wt_setup(ox, oy, oz, dx, dy, dz);
     auto sc_entry_of = [&](int s) {
@@ -133,7 +146,7 @@ __global__ void __launch_bounds__(K6_WARPS* TILE) onehot2_walk_kernel(
     int bp = -1, bo = -1;
     int entered = 0, walked = 0, gboxes = 0, gpasses = 0, rows = 0,
         tested = 0, xforms = 0, passes = 0, boxes = 0;
-    const int pbase = RT_META_COLS + 9 * ct, obase = pbase + ct,
+    const int pbase = rt_prim_col(ct, MOT), obase = pbase + ct,
               vbase = obase + ct;
     // the lane's gate: entries below its best t; none once an any-hit lane
     // has its hit
@@ -221,8 +234,14 @@ __global__ void __launch_bounds__(K6_WARPS* TILE) onehot2_walk_kernel(
                             }
                         }
                         float t, u, v;
-                        if (wt_tri(w, row + RT_META_COLS + 9 * k, tmin, bt, &t,
-                                   &u, &v)) {
+                        const bool hit =
+                            MOT ? wt_tri_at<true>(
+                                      w, row + RT_META_COLS + 9 * k,
+                                      row + RT_META_COLS + 9 * (ct + k), tm,
+                                      tmin, bt, &t, &u, &v)
+                                : wt_tri(w, row + RT_META_COLS + 9 * k, tmin,
+                                         bt, &t, &u, &v);
+                        if (hit) {
                             bt = t;
                             bp = (int)pid;
                             bu = u;
@@ -263,50 +282,51 @@ __global__ void __launch_bounds__(K6_WARPS* TILE) onehot2_walk_kernel(
     }
 }
 
-template <bool COUNT>
+template <bool COUNT, bool MOT>
 static int launch(const float* scb, const float* cbounds, const float* ctable,
                   int SC, int C, int W, int ct, int gmax, const float* o,
                   const float* d, const float* tmin, const float* tmax,
-                  const int* vis, int n, int any_hit, int instances, float* t,
-                  int* prim, float* u, float* v, int* obj, int* counts,
-                  cudaStream_t stream) {
+                  const int* vis, const float* time, int n, int any_hit,
+                  int instances, float* t, int* prim, float* u, float* v,
+                  int* obj, int* counts, cudaStream_t stream) {
     // the supercluster table, then per warp one group's bounds (the
     // bitmasks are static): 28.3 KB a block at SC = 512, gmax = 128
     const size_t smem =
         ((size_t)SC * 8 + (size_t)K6_WARPS * gmax * 6) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        onehot2_walk_kernel<K6_QUEUE, K6_GQUEUE, COUNT>,
+        onehot2_walk_kernel<K6_QUEUE, K6_GQUEUE, COUNT, MOT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int block = K6_WARPS * TILE;
     const int grid = (n + block - 1) / block;
-    onehot2_walk_kernel<K6_QUEUE, K6_GQUEUE, COUNT>
+    onehot2_walk_kernel<K6_QUEUE, K6_GQUEUE, COUNT, MOT>
         <<<grid, block, smem, stream>>>(scb, cbounds, ctable, SC, C, W, ct,
-                                        gmax, o, d, tmin, tmax, vis, n,
+                                        gmax, o, d, tmin, tmax, vis, time, n,
                                         any_hit, instances, t, prim, u, v, obj,
                                         counts);
     return (int)cudaGetLastError();
 }
 
 // K5's argument list; gmax (the largest group) must be 1..G_CAP and SC at
-// most K6_MAX_WORDS x 32. counts: (N, 8) int32, or null (the counting
-// variant runs when given).
+// most K6_MAX_WORDS x 32. time: (N,) f32 with motion rows (motion != 0),
+// else null; counts: (N, 8) int32, or null (the counting variant runs when
+// given).
 extern "C" int rt_onehot2_walk(const float* scb, const float* cbounds,
                                const float* ctable, int SC, int C, int W,
                                int ct, int gmax, const float* o,
                                const float* d, const float* tmin,
                                const float* tmax, const int* vis, int n,
-                               int any_hit, int instances, float* t,
-                               int* prim, float* u, float* v, int* obj,
-                               int* counts, void* stream) {
+                               int any_hit, int instances, int motion,
+                               const float* time, float* t, int* prim,
+                               float* u, float* v, int* obj, int* counts,
+                               void* stream) {
     if (n <= 0) return 0;
     if (gmax < 1 || gmax > G_CAP || SC > K6_MAX_WORDS * 32)
         return (int)cudaErrorInvalidValue;
-    if (counts)
-        return launch<true>(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d,
-                            tmin, tmax, vis, n, any_hit, instances, t, prim,
-                            u, v, obj, counts, (cudaStream_t)stream);
-    return launch<false>(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin,
-                         tmax, vis, n, any_hit, instances, t, prim, u, v, obj,
-                         counts, (cudaStream_t)stream);
+    if (instances && motion) return (int)cudaErrorInvalidValue;
+    auto* fn = counts ? (motion ? launch<true, true> : launch<true, false>)
+                      : (motion ? launch<false, true> : launch<false, false>);
+    return fn(scb, cbounds, ctable, SC, C, W, ct, gmax, o, d, tmin, tmax, vis,
+              time, n, any_hit, instances, t, prim, u, v, obj, counts,
+              (cudaStream_t)stream);
 }

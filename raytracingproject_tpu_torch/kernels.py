@@ -40,6 +40,10 @@ _I = ctypes.c_int
 # null: the counting variant runs when given)
 _WALK = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
          _P, _P, _P, _P, _P, _P, _P]
+# two-level walks (K5, K6): sc_bounds cbounds ctable SC C W ct gmax o d
+# tmin tmax vis n any_hit instances motion time t prim u v obj counts stream
+_WALK2 = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+          _I, _P, _P, _P, _P, _P, _P, _P, _P]
 # source -> {C entry point: argtypes}
 SIGNATURES = {
     "cluster_walk.cu": {"rt_cluster_walk": _WALK},
@@ -50,14 +54,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P]},
     "tile_walk.cu": {"rt_tile_walk": _WALK},
     # sc_bounds cbounds ctable SC C W ct gmax o d tmin tmax vis n any_hit
-    # instances t prim u v obj counts stream (counts: (N, 6) int32 or null)
-    "cluster2_walk.cu": {"rt_cluster2_walk": [
-        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P]},
+    # instances motion time t prim u v obj counts stream (time: (N,) f32 or
+    # null; counts: (N, 6) int32 or null)
+    "cluster2_walk.cu": {"rt_cluster2_walk": _WALK2},
     # K6 takes K5's arguments (counts: (N, 8) int32 or null)
-    "onehot2_walk.cu": {"rt_onehot2_walk": [
-        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P]},
+    "onehot2_walk.cu": {"rt_onehot2_walk": _WALK2},
     # cbounds ctable C W ct | o d tmin tmax vis of the closest ray | the
     # same of the any-hit ray | n instances t prim u v obj blocked counts
     # stream

@@ -11,7 +11,11 @@ warp of 32 rays together, one supercluster and then one cluster per step,
 so prim and object may differ from the plain version's at exact-t ties
 between clusters; hit masks agree, and t, u and v on every lane whose
 prim and object do. Instance rows (w2o in the row) are tested in object
-space. `launches` counts kernel launches. With
+space. Motion rows (has_motion, ops/cluster_intersect.py) are tested at
+each lane's time (time (N,) f32; zeros when None, as the JAX walks take
+it): the boxes cover both shutter ends, so the visit order needs nothing
+more; motion rows never carry instances, and the two together raise.
+`launches` counts kernel launches. With
 counts=True the counting variant runs and the call also returns (N, 6)
 int32 counts per lane (CUDA tensors only): the superclusters its warp
 entered, the group tables it filled, the rows its warp fetched, the rows
@@ -25,7 +29,8 @@ the kernel's (per-lane queues of SC_QUEUE (entry, supercluster) pairs and
 a retired bitmask, as K4's; the group level keeps its gate-capped (gmax,
 32) table; a lane transforms its ray only for a row it tests whose w2o
 differs from the last one it used). Both visit the same rows in the same
-order, so every output and every step count is equal.
+order, so every output and every step count is equal. Both take the
+lanes' times with motion rows.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from raytracingproject_tpu_torch import kernels
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
+from raytracingproject_tpu_torch.ops import cluster_walk as cw
 from raytracingproject_tpu_torch.ops import intersect as isect
 from raytracingproject_tpu_torch.ops import tile_walk as tw
 
@@ -63,16 +69,15 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
     returns dict t, u, v (f32) and prim, object (int32), (N,) each; with
     counts=True (hit dict, (N, 6) int32 counts as the module states)."""
     global launches
-    if has_motion:
-        raise NotImplementedError(
-            "motion rows in K5 are not ported (time is read only with them)")
+    cw.no_motion_instances(has_instances, has_motion)
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit,
-                                     has_instances=has_instances)
+                                     has_instances=bool(has_instances),
+                                     time=time, has_motion=bool(has_motion))
     kernels.require(int(gmax) > 0, "gmax must be positive")
     kernels.unsupported(
         smem_per_warp(sc_bounds.shape[0], int(gmax), ctable.shape[1])
@@ -84,6 +89,8 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
     out = launch_two_level("rt_cluster2_walk", sc_bounds, cbounds, ctable,
                            cluster_tris, gmax, o, d, tmin, tmax, visibility,
                            shadow_any_hit, has_instances,
+                           ci.lane_time(time, o.shape[0], has_motion,
+                                        o.device),
                            (cnt.data_ptr() if counts else None,))
     launches += 1
     return (out, cnt) if counts else out
@@ -91,20 +98,24 @@ def intersect_clusters2_walk(sc_bounds, cbounds, ctable, cluster_tris, gmax,
 
 def launch_two_level(entry, sc_bounds, cbounds, ctable, cluster_tris, gmax,
                      o, d, tmin, tmax, visibility, shadow_any_hit,
-                     has_instances, extra=()):
+                     has_instances, time, extra=()):
     """Check the arguments the two-level kernels share (K5's
     rt_cluster2_walk, K6's rt_onehot2_walk: one argument list, K5's with
-    the counts pointer in `extra`), allocate the outputs and launch C
-    entry point `entry`; returns the hit dict."""
+    the counts pointer in `extra`; with time, motion rows and the lanes'
+    times), allocate the outputs and launch C entry point `entry`;
+    returns the hit dict."""
     n, sc, c, w = o.shape[0], sc_bounds.shape[0], cbounds.shape[0], \
         ctable.shape[1]
     kernels.unsupported(
         sc <= MAX_SUPERCLUSTERS,
         f"{sc} superclusters: the kernel takes at most {MAX_SUPERCLUSTERS}")
     req = kernels.require
-    for name, x in (("sc_bounds", sc_bounds), ("cbounds", cbounds),
-                    ("ctable", ctable), ("o", o), ("d", d), ("tmin", tmin),
-                    ("tmax", tmax), ("visibility", visibility)):
+    lanes = (("sc_bounds", sc_bounds), ("cbounds", cbounds),
+             ("ctable", ctable), ("o", o), ("d", d), ("tmin", tmin),
+             ("tmax", tmax), ("visibility", visibility))
+    if time is not None:
+        lanes += (("time", time),)
+    for name, x in lanes:
         req(x.device.type == "cuda", f"{name} must be a CUDA tensor")
         req(x.is_contiguous(), f"{name} must be contiguous")
         req(x.dtype == (torch.int32 if name == "visibility"
@@ -112,11 +123,13 @@ def launch_two_level(entry, sc_bounds, cbounds, ctable, cluster_tris, gmax,
     req(sc > 0, "the walk needs at least one supercluster")
     req(sc_bounds.shape == (sc, 8), "sc_bounds must be (SC, 8)")
     req(c > 0 and cbounds.shape == (c, 6), "cbounds must be (C, 6)")
-    req(ctable.shape[0] == c and w == ci.row_width(cluster_tris),
-        "ctable must be (C, row_width(cluster_tris))")
+    req(ctable.shape[0] == c
+        and w == ci.row_width(cluster_tris, time is not None),
+        "ctable must be (C, row_width(cluster_tris, motion))")
     req(o.shape == (n, 3) and d.shape == (n, 3), "o, d must be (N, 3)")
-    for x in (tmin, tmax, visibility):
-        req(x.shape == (n,), "tmin, tmax, visibility must be (N,)")
+    for x in (tmin, tmax, visibility) + ((time,) if time is not None
+                                         else ()):
+        req(x.shape == (n,), "tmin, tmax, visibility, time must be (N,)")
     dev = o.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
@@ -127,9 +140,10 @@ def launch_two_level(entry, sc_bounds, cbounds, ctable, cluster_tris, gmax,
         sc_bounds.data_ptr(), cbounds.data_ptr(), ctable.data_ptr(), sc, c,
         w, int(cluster_tris), int(gmax), o.data_ptr(), d.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), visibility.data_ptr(), n,
-        int(bool(shadow_any_hit)), int(bool(has_instances)), t.data_ptr(),
-        prim.data_ptr(), u.data_ptr(), v.data_ptr(), obj.data_ptr(),
-        *extra, kernels.current_stream())
+        int(bool(shadow_any_hit)), int(bool(has_instances)),
+        int(time is not None), time.data_ptr() if time is not None else None,
+        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+        obj.data_ptr(), *extra, kernels.current_stream())
     kernels.check_rc(entry, rc)
     return {"t": t, "prim": prim, "u": u, "v": v, "object": obj}
 
@@ -155,10 +169,13 @@ def _slab(b, o, inv, tmin, tmax):
 
 def _cluster2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
                     tmin, tmax, visibility, shadow_any_hit, has_instances,
-                    queue):
+                    queue, time=None, has_motion=False):
     n = o.shape[0]
     sc, c, gmax = sc_bounds.shape[0], cbounds.shape[0], int(gmax)
-    o, d, tmin, tmax, vis, live = tw.pad_lanes(o, d, tmin, tmax, visibility)
+    time = ci.lane_time(time, n, has_motion, o.device)
+    o, d, tmin, tmax, vis, live, *tp = tw.pad_lanes(o, d, tmin, tmax,
+                                                    visibility, time)
+    time = tp[0] if tp else None
     dev, lanes_n = o.device, o.shape[0]
     lane = torch.arange(lanes_n, device=dev)
     warp = lane // tw.TILE
@@ -205,7 +222,8 @@ def _cluster2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
             cnt[:, 3] += test
             cnt[:, 2] += on
             tw.row_test(ctable, cluster_tris, cid, test, ws, tmin, vis, hit,
-                        *((o, d) if has_instances else ()))
+                        *((o, d) if has_instances else (None, None)),
+                        time=time)
             centry[g[on], on.nonzero()[:, 0]] = ci.INF
             ended = (inner & ~found).nonzero()[:, 0]
             sc_ret[cur[ended], ended] = True
@@ -251,30 +269,33 @@ def _cluster2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
 
 def cluster2_scan_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
                         tmin, tmax, visibility, shadow_any_hit=False,
-                        has_instances=False):
+                        has_instances=False, time=None, has_motion=False):
     """K5's earlier design as plain torch: lanes in warps of 32; the warp
     picks the lexicographic minimum (entry, supercluster) over its lanes'
     unretired entries below their gates, fills the group's (gmax, 32)
     entry table (each lane's boxes capped by its gate), walks the group
     one cluster per step as K4 does (with instance rows every lane of the
-    warp transforms its ray by each row), then retires the supercluster.
+    warp transforms its ray by each row; with has_motion every lane tests
+    a row's triangles at its time), then retires the supercluster.
     Returns (hit dict, (N, 5) int32: superclusters entered by the lane's
     warp, group tables filled, rows its warp fetched, rows the lane
     tested, w2o transforms it computed)."""
     return _cluster2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o,
                            d, tmin, tmax, visibility, shadow_any_hit,
-                           has_instances, None)
+                           has_instances, None, time, has_motion)
 
 
 def cluster2_queue_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o,
                          d, tmin, tmax, visibility, shadow_any_hit=False,
-                         has_instances=False, queue=SC_QUEUE):
+                         has_instances=False, queue=SC_QUEUE, time=None,
+                         has_motion=False):
     """K5's kernel as plain torch: the same walk with the supercluster
     pick taken from per-lane queues of `queue` pairs
     (tile_walk.LaneQueues) and at most SC entries a warp; a lane
     transforms its ray only for a row it tests whose w2o bits differ from
-    the last it used. Returns (hit dict, (N, 6) int32 counts: those of
+    the last it used; with has_motion a lane tests a row's triangles at
+    its time. Returns (hit dict, (N, 6) int32 counts: those of
     intersect_clusters2_walk(counts=True))."""
     return _cluster2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o,
                            d, tmin, tmax, visibility, shadow_any_hit,
-                           has_instances, int(queue))
+                           has_instances, int(queue), time, has_motion)

@@ -50,7 +50,9 @@ the closest hit, the NEE shadow test (its any-hit mode) and the volume
 dual sweep (its dual form). Two-level tables (sc_bounds, big and
 instanced scenes) under kg["pallas_clusters2"] (default "auto" = on):
 kg["pallas_onehot2"] (opt-in) selects K6 (ops/onehot2_walk.py) where the
-groups fit its inner walk (sc_gmax <= 128), else the two-level walk K5
+tables are within its capacity (sc_gmax <= 128 and the JAX package's
+VMEM estimate for its group tables: onehot2_walk.fits), else the
+two-level walk K5
 (ops/cluster2_walk.py). Single-level tables: kg["pallas_onehot"]
 (default "auto" = on) the per-lane walk K2 (ops/cluster_walk.py) where
 the table has at most 512 clusters; else kg["pallas_clusters"] (default
@@ -181,11 +183,14 @@ def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False,
             int(kg["cluster_tris"]), o, d, tmin, tmax, visibility)
     if "sc_bounds" in ds:
         if _flag(kg, "pallas_clusters2"):
-            # K6 is opt-in only, and only where the groups fit its inner
-            # walk; K5 otherwise
+            # K6 is opt-in only, and only where the tables are within its
+            # capacity (where the JAX package packs its oh2_* tables); K5
+            # otherwise
             walk2 = cluster2_walk.intersect_clusters2_walk
             if bool(kg.get("pallas_onehot2", False)) \
-                    and onehot2_walk.fits(kg["sc_gmax"]):
+                    and onehot2_walk.fits(kg["sc_gmax"],
+                                          ds["sc_bounds"].shape[0],
+                                          ds["cluster_table"].shape[1]):
                 walk2 = onehot2_walk.intersect_clusters2_onehot
             return walk2(
                 ds["sc_bounds"], *args[:3], int(kg["sc_gmax"]), *args[3:],

@@ -6,9 +6,11 @@ the supercluster table sc_bounds (SC, 8) and its group size gmax beside
 the f32 cluster tables. The JAX package's bf16x3 group tables (oh2_*,
 pack_onehot2_tables) are not built: they feed the TPU's matrix unit, and
 the kernel reads the f32 rows directly. What is kept of that packing is
-its capacity rule, gmax <= G_PAD (128 clusters per supercluster);
-`fits(gmax)` states it, and the integrator falls back to K5 where it
-fails, as the JAX package does when its packing declines.
+its capacity rule: gmax <= G_PAD (128 clusters per supercluster), which
+the kernel needs too, and the packing's VMEM estimate, which grows with
+the supercluster count and the row width; `fits(gmax, sc, w)` states
+both, and the integrator falls back to K5 where it fails, as the JAX
+package does when its packing declines.
 
 The contract is the plain walk's, ops/cluster_intersect.py
 `intersect_clusters` over all C clusters (the JAX package's own reference
@@ -17,7 +19,9 @@ plain version; a CUDA tensor launches the hand-written kernel
 csrc/onehot2_walk.cu or raises. The outer level is shared by a warp of 32
 rays and each lane walks a picked group's clusters in its own order, so
 prim and object may differ from the plain version's at exact-t ties
-between clusters; hit masks, t, u and v agree. Motion rows raise.
+between clusters; hit masks, t, u and v agree. Motion rows
+(has_motion) are tested at each lane's time (time (N,) f32; zeros when
+None), as K5 tests them; motion rows with instance rows raise.
 `launches` counts kernel launches. With counts=True the counting variant
 runs and the call also returns (N, 8) int32 counts per lane (CUDA tensors
 only), the columns of COUNTS.
@@ -33,7 +37,7 @@ G_QUEUE packed keys, refilled above the last key when it runs dry while
 a key fell off; a transform only at a row the lane tests whose w2o
 differs from the last one it used). Both visit the same rows in the same
 order, so every output is equal on every lane, and so are the columns of
-SHARED_COUNTS.
+SHARED_COUNTS. Both take the lanes' times with motion rows.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from raytracingproject_tpu_torch import kernels
 from raytracingproject_tpu_torch.ops import cluster_intersect as ci
 from raytracingproject_tpu_torch.ops import cluster2_walk as k5
+from raytracingproject_tpu_torch.ops import cluster_walk as cw
 from raytracingproject_tpu_torch.ops import intersect as isect
 from raytracingproject_tpu_torch.ops import tile_walk as tw
 from raytracingproject_tpu_torch.ops.cluster2_walk import (
@@ -64,10 +69,21 @@ NO_KEY = 0xFFFFFFFF            # watertight.cuh RT_NO_KEY
 KEY_NEG = 0x80000000           # watertight.cuh RT_KEY_NEG
 
 
-def fits(gmax):
-    """Whether two-level tables with groups of up to gmax clusters are
-    within K6's capacity."""
-    return 0 < int(gmax) <= G_PAD
+def fits(gmax, sc=0, w=0):
+    """Whether two-level tables of sc superclusters with groups of up to
+    gmax clusters, rows w floats wide, are within K6's capacity: the
+    kernel's inner walk takes gmax <= G_PAD, and the JAX package packs
+    its group tables only while twice its inner working set at a tile of
+    1,024 lanes, (4 sc + 4 G_PAD + 4 w_pad + 6 w_pad / 128 + 1024) x
+    1024 bytes (w padded to 16), fits its VMEM budget
+    (ops/pallas_onehot.py pack_onehot2_tables). sc = w = 0 asks for the
+    kernel's own limit alone."""
+    if not 0 < int(gmax) <= G_PAD:
+        return False
+    w_pad = -(-int(w) // 16) * 16
+    est = (int(sc) * 4 + G_PAD * 4 + w_pad * 4 + w_pad * 2 * 3 // 128
+           + 1024) * 1024
+    return est * 2 <= cw.VMEM_BUDGET
 
 
 def smem_per_warp(sc):
@@ -87,16 +103,15 @@ def intersect_clusters2_onehot(sc_bounds, cbounds, ctable, cluster_tris, gmax,
     returns dict t, u, v (f32) and prim, object (int32), (N,) each; with
     counts=True (hit dict, (N, 8) int32 counts, the columns of COUNTS)."""
     global launches
-    if has_motion:
-        raise NotImplementedError(
-            "motion rows in K6 are not ported (time is read only with them)")
+    cw.no_motion_instances(has_instances, has_motion)
     if o.device.type == "cpu":
         if counts:
             raise NotImplementedError("visit counts come from the kernel")
         return ci.intersect_clusters(cbounds, ctable, cluster_tris, o, d,
                                      tmin, tmax, visibility,
                                      shadow_any_hit=shadow_any_hit,
-                                     has_instances=has_instances)
+                                     has_instances=bool(has_instances),
+                                     time=time, has_motion=bool(has_motion))
     kernels.unsupported(
         fits(gmax), f"gmax {gmax}: the inner walk takes groups of 1..{G_PAD}")
     kernels.unsupported(
@@ -108,6 +123,8 @@ def intersect_clusters2_onehot(sc_bounds, cbounds, ctable, cluster_tris, gmax,
     out = launch_two_level("rt_onehot2_walk", sc_bounds, cbounds, ctable,
                            cluster_tris, gmax, o, d, tmin, tmax, visibility,
                            shadow_any_hit, has_instances,
+                           ci.lane_time(time, o.shape[0], has_motion,
+                                        o.device),
                            (cnt.data_ptr() if counts else None,))
     launches += 1
     return (out, cnt) if counts else out
@@ -217,11 +234,14 @@ class _GroupWalk:
 
 def _onehot2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
                    tmin, tmax, visibility, shadow_any_hit, has_instances,
-                   queue, gqueue):
+                   queue, gqueue, time=None, has_motion=False):
     n = o.shape[0]
     sc, c, gmax = sc_bounds.shape[0], cbounds.shape[0], int(gmax)
     ct = int(cluster_tris)
-    o, d, tmin, tmax, vis, live = tw.pad_lanes(o, d, tmin, tmax, visibility)
+    time = ci.lane_time(time, n, has_motion, o.device)
+    o, d, tmin, tmax, vis, live, *tp = tw.pad_lanes(o, d, tmin, tmax,
+                                                    visibility, time)
+    time = tp[0] if tp else None
     dev, lanes_n = o.device, o.shape[0]
     lane = torch.arange(lanes_n, device=dev)
     warp = lane // TILE
@@ -242,7 +262,7 @@ def _onehot2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
     last_m = torch.zeros((lanes_n, 12), dtype=torch.int32, device=dev)
     have_m = torch.zeros(lanes_n, dtype=torch.bool, device=dev)
     scratch = torch.zeros(lanes_n, dtype=torch.long, device=dev)
-    pbase = ci.META_COLS + 9 * ct
+    pbase = ci.prim_col(ct, time is not None)
     for _ in range(sc):
         gate = tw.lane_gate(hit, shadow_any_hit)
         on = running[warp]
@@ -314,7 +334,8 @@ def _onehot2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
                 cid_l = torch.zeros(lanes_n, dtype=torch.long, device=dev)
                 cid_l[li] = cid
                 tw.row_test(ctable, ct, cid_l, test, ws, tmin, vis, hit,
-                            *((o, d) if has_instances else ()))
+                            *((o, d) if has_instances else (None, None)),
+                            time=time)
                 if shadow_any_hit:
                     gw.done[r[hit["prim"][li] >= 0]] = True
         steps = (cnt[:, 4] - rows_before).view(-1, TILE).amax(1)
@@ -329,7 +350,7 @@ def _onehot2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
 
 def onehot2_scan_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
                        tmin, tmax, visibility, shadow_any_hit=False,
-                       has_instances=False):
+                       has_instances=False, time=None, has_motion=False):
     """K6's first design as plain torch: lanes in warps of 32; the warp
     picks the lexicographic minimum (entry, supercluster) over its lanes'
     unretired entries below their gates ((SC, 32) table scan); each lane
@@ -337,33 +358,37 @@ def onehot2_scan_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o, d,
     segment capped by its gate at group entry it rescans the group's boxes
     for its smallest packed key above the last one whose truncated entry
     is below its gate (at most gcount visits), reads that row, transforms
-    its ray by the row's w2o and tests the triangles (an any-hit lane stops
-    at its hit); then the supercluster is retired for the warp. Returns
+    its ray by the row's w2o and tests the triangles, with has_motion at
+    its time (an any-hit lane stops at its hit); then the supercluster is
+    retired for the warp. Returns
     (hit dict, (N, 8) int32 counts as COUNTS: box tests and passes are the
     rescans', transforms one per row read, supercluster passes the picks'
     table scans; (N,) int32 the warp's inner steps: the sum over the
     groups it entered of the most rows a lane of it read)."""
     return _onehot2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o,
                           d, tmin, tmax, visibility, shadow_any_hit,
-                          has_instances, None, None)
+                          has_instances, None, None, time, has_motion)
 
 
 def onehot2_queue_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o,
                         d, tmin, tmax, visibility, shadow_any_hit=False,
-                        has_instances=False, queue=SC_QUEUE, gqueue=G_QUEUE):
+                        has_instances=False, queue=SC_QUEUE, gqueue=G_QUEUE,
+                        time=None, has_motion=False):
     """K6's kernel as plain torch: the same walk with the supercluster
     pick taken from per-lane queues of `queue` pairs
     (tile_walk.LaneQueues, at most SC entries a warp) and each group walk
     from one box pass into a queue of `gqueue` packed keys, culled heads
     dropped, another pass above the last key when it runs dry while a key
     fell off; a transform only at a row the lane tests (a triangle not
-    skipped) whose w2o bits differ from the last it used. Returns (hit
+    skipped) whose w2o bits differ from the last it used; with has_motion
+    the triangles are tested at the lane's time. Returns (hit
     dict, (N, 8) int32 counts: those of
     intersect_clusters2_onehot(counts=True), (N,) int32 the warp's inner
     steps)."""
     return _onehot2_order(sc_bounds, cbounds, ctable, cluster_tris, gmax, o,
                           d, tmin, tmax, visibility, shadow_any_hit,
-                          has_instances, int(queue), int(gqueue))
+                          has_instances, int(queue), int(gqueue), time,
+                          has_motion)
 
 
 def grid_tables2(sc, g, ct, rng, device="cpu", pitch=100.0, size=80.0,

@@ -238,10 +238,17 @@ def test_k5_wrapper_refuses_what_the_kernel_does_not_take(scene):
         k5.intersect_clusters2_walk(meta["sc_bounds"], meta["cluster_bounds"],
                                     meta["cluster_table"], ct, gmax, o, o, t1,
                                     t1, vis)
-    with pytest.raises(NotImplementedError):
+    # motion rows reach the argument checks; with instance rows they raise
+    # (the JAX package packs no table of moving instances)
+    with pytest.raises(ValueError):
         k5.intersect_clusters2_walk(meta["sc_bounds"], meta["cluster_bounds"],
                                     meta["cluster_table"], ct, gmax, o, o, t1,
                                     t1, vis, has_motion=True)
+    with pytest.raises(NotImplementedError):
+        k5.intersect_clusters2_walk(meta["sc_bounds"], meta["cluster_bounds"],
+                                    meta["cluster_table"], ct, gmax, o, o, t1,
+                                    t1, vis, has_instances=True,
+                                    has_motion=True)
     # SC and gmax at the JAX package's caps overflow one warp's shared
     # memory: (512 + 512) x 32 x 4 B = 128 KB fits, 2 x 1,024 would not
     assert k5.smem_per_warp(512, 512, 469) <= k5.SMEM_BYTES

@@ -321,9 +321,10 @@ def _meta(shape, dtype=torch.float32):
 
 def test_motion_rows_still_raise():
     """What still refuses motion rows, before looking at the device:
-    K2, K4 and K3 with instance rows (the JAX package packs no table of
-    moving instances), K7, K5 and K6 on their own (not ported); fused-NEE
-    mode never serves a scene with them."""
+    K2, K4, K3, K5 and K6 with instance rows (the JAX package packs no
+    table of moving instances), K7 on its own (not ported: no path of
+    either package calls it with motion rows); fused-NEE mode never
+    serves a scene with them."""
     kg = port_kg("grid5_nlat15")
     ds = kg["dscene"]
     cb, ctab, cbd = ds["cluster_bounds"], ds["cluster_table"], \
@@ -338,23 +339,19 @@ def test_motion_rows_still_raise():
         lambda: k4.intersect_clusters_tile(cb, ctab, ct, o, o, t, t, vis,
                                            **both),
         lambda: k3.occlusion_clusters_walk(cb, ctab, cbd, ct, o, o, t, t, t,
-                                           1, 128, **both))
+                                           1, 128, **both),
+        lambda: k5.intersect_clusters2_walk(cb, cb, ctab, ct, 8, o, o, t, t,
+                                            vis, **both),
+        lambda: k6.intersect_clusters2_onehot(cb, cb, ctab, ct, 8, o, o, t,
+                                              t, vis, **both))
     for call in calls:
         with pytest.raises(NotImplementedError,
                            match="^motion rows with instance rows"):
             call()
-    calls = (
-        ("K7", lambda: k7.intersect_clusters_dual_walk(
-            cb, ctab, ct, o, o, t, t, vis, o, o, t, t, vis,
-            has_motion=True)),
-        ("K5", lambda: k5.intersect_clusters2_walk(
-            cb, cb, ctab, ct, 8, o, o, t, t, vis, has_motion=True)),
-        ("K6", lambda: k6.intersect_clusters2_onehot(
-            cb, cb, ctab, ct, 8, o, o, t, t, vis, has_motion=True)))
-    for name, call in calls:
-        with pytest.raises(NotImplementedError,
-                           match=f"^motion rows in {name} are not ported"):
-            call()
+    with pytest.raises(NotImplementedError,
+                       match="^motion rows in K7 are not ported"):
+        k7.intersect_clusters_dual_walk(cb, ctab, ct, o, o, t, t, vis, o, o,
+                                        t, t, vis, has_motion=True)
     assert not integ._use_fused_nee(
         {**kg, "fused_nee": True, "cluster_motion": True})
 

@@ -16,7 +16,10 @@ every output and every count equal on every lane. The instance rows of
 single-level tables: K2, K4, K3 (both forms) and K7 through
 instanced_scene(grid=6) (577 clusters x 38) and instanced_scene(grid=5,
 nlat=15) (401 x 48), t, u, v to the bit where prim and object agree, and
-K4 there against its mirrors too. K3's
+K4 there against its mirrors too. The motion rows of two-level tables:
+K5 and K6 through glossy_deform_big (936 clusters x 64), against the
+plain motion walk, their mirrors at the lanes' times, and at time 0
+against their static walks over glossy_big's tables. K3's
 dual form runs on a seeded random volume-boundary table (the glossy
 scene's own is all zeros), so both of its minima are exercised. Kernel
 and plain version share one operation order and the kernels build with
@@ -854,3 +857,76 @@ def test_dense_sweep_kernel_deform_far_moving_quad(kg_deform, mode):
         assert torch.equal(a, b)
     hit = ref["prim"] >= 0 if mode == "closest" else ref
     assert hit.float().mean().item() > 0.95
+
+
+@pytest.fixture(scope="module")
+def kg_deform_big():
+    """glossy_deform_big's two-level motion tables (936 clusters x 64 in
+    25 superclusters) and glossy_big's static ones (the same clusters at
+    shutter open)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    out = {}
+    for name, fn in (("motion", examples.glossy_deform_big_scene),
+                     ("static", examples.glossy_big_scene)):
+        s = fn(64, 64, spp=2)
+        s.device_update()
+        out[name] = s.make_kernel_globals("cuda")
+    assert out["motion"]["cluster_motion"]
+    assert "sc_bounds" in out["motion"]["dscene"]
+    return out
+
+
+def _two_level_args(kg, o, d, tmin, tmax):
+    ds = kg["dscene"]
+    n = o.shape[0]
+    return (ds["sc_bounds"], ds["cluster_bounds"], ds["cluster_table"],
+            int(kg["cluster_tris"]), int(kg["sc_gmax"]), o, d, tmin, tmax,
+            torch.ones(n, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_two_level_kernels_with_motion_rows(kg_deform_big, kernel, any_hit):
+    """K5 and K6 on glossy_deform_big's motion rows, random rays from
+    inside the box at random times: hit masks equal to the plain motion
+    walk's and t, u, v to the bit off exact-t ties; every output equal to
+    the scan-order mirror's at the lanes' times; the counting variant's
+    outputs the plain launch's and its counts the queue-order mirror's;
+    at time 0 the kernel's static walk over glossy_big's tables."""
+    module, fn = {"K5": (k5, k5.intersect_clusters2_walk),
+                  "K6": (k6, k6.intersect_clusters2_onehot)}[kernel]
+    scan = {"K5": k5.cluster2_scan_order, "K6": k6.onehot2_scan_order}
+    queue = {"K5": k5.cluster2_queue_order, "K6": k6.onehot2_queue_order}
+    o, d, tmax_any, _ = _rays(61, lo=0.0, hi=556.0)
+    tmin = torch.full((N,), 1e-4, device="cuda")
+    tmax = tmax_any if any_hit else torch.full((N,), 1e30, device="cuda")
+    args = _two_level_args(kg_deform_big["motion"], o, d, tmin, tmax)
+    kw = {"shadow_any_hit": any_hit, "has_motion": True,
+          "time": _times(62)}
+    before = module.launches
+    got = fn(*args, **kw)
+    got_c, cnt = fn(*args, counts=True, **kw)
+    ref = ci.intersect_clusters(*args[1:4], *args[5:], **kw)
+    mirror = scan[kernel](*args, **kw)[0]
+    qcnt = queue[kernel](*args, **kw)[1]
+    torch.cuda.synchronize()
+    assert module.launches == before + 2
+    for k in mirror:
+        assert torch.equal(got[k], mirror[k]), k
+        assert torch.equal(got_c[k], got[k]), k
+    assert torch.equal(cnt, qcnt)
+    if any_hit:
+        assert torch.equal(got["prim"] >= 0, ref["prim"] >= 0)
+    else:
+        _assert_to_the_bit(got, ref)
+    zero = {"shadow_any_hit": any_hit, "has_motion": True,
+            "time": torch.zeros(N, device="cuda")}
+    at0 = fn(*args, **zero)
+    static = fn(*_two_level_args(kg_deform_big["static"], o, d, tmin, tmax),
+                shadow_any_hit=any_hit)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(at0["prim"] >= 0, static["prim"] >= 0)
+    else:
+        _assert_to_the_bit(at0, static)

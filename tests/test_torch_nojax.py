@@ -15,10 +15,12 @@ third, the textured_instanced scene (example:textured_instanced: 8,450
 prims built by the port's own C++ BVH builder) renders 8x8 at 2 spp
 through the CLI's scene loader, and instanced_scene(grid=6)
 (example:instanced_grid6: a single-level table with instance rows, K4's
-and K3's plain versions) 8x8 at 1 spp. In a fourth, the two deforming
+and K3's plain versions) 8x8 at 1 spp. In a fourth, the deforming
 scenes (example:glossy_deform: motion cluster rows; example:cornell_deform:
-a three-step path on the dense sweep) render 8x8 at 1 spp through the
-CLI's scene loader. The sources import neither jax nor anything of the
+a three-step path on the dense sweep; example:glossy_deform_big[:onehot2]:
+two-level motion tables, 42,552 prims built by the port's C++ builder,
+K5's or K6's plain version) render 8x8 at 1 spp through the CLI's scene
+loader. The sources import neither jax nor anything of the
 JAX package."""
 
 import os
@@ -178,18 +180,23 @@ class BlockJax(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, BlockJax())
 import numpy as np
+import torch
 from raytracingproject_tpu_torch.app import cli
 from raytracingproject_tpu_torch.session.session import render
+torch.set_num_threads(1)
 means = []
-for spec in ("example:glossy_deform", "example:cornell_deform"):
+for spec in ("example:glossy_deform", "example:cornell_deform",
+             "example:glossy_deform_big", "example:glossy_deform_big:onehot2"):
     sc, flags = cli.load_scene(spec)
-    assert not flags
+    assert bool(flags) == spec.endswith(":onehot2")
     sc.camera.set("width", 8)
     sc.camera.set("height", 8)
     sc.device_update()
     kg = sc.make_kernel_globals("cpu")
+    kg.update(flags)
     assert kg["has_deform_motion"]
-    assert kg["cluster_motion"] == (spec == "example:glossy_deform")
+    assert kg["cluster_motion"] == (spec != "example:cornell_deform")
+    assert ("sc_bounds" in kg["dscene"]) == ("big" in spec)
     img = render(sc, samples=1, chunk=1, device="cpu", kg=kg)
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     assert img.mean() > 0

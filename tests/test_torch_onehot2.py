@@ -175,9 +175,13 @@ def test_k6_wrapper_refuses_what_the_kernel_does_not_take(scene):
     with pytest.raises(ValueError, match="CUDA tensor"):
         k6.intersect_clusters2_onehot(*tabs, scene["sc_gmax"], o, o, t1, t1,
                                       vis)
-    with pytest.raises(NotImplementedError, match="motion"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         k6.intersect_clusters2_onehot(*tabs, scene["sc_gmax"], o, o, t1, t1,
                                       vis, has_motion=True)
+    with pytest.raises(NotImplementedError, match="motion"):
+        k6.intersect_clusters2_onehot(*tabs, scene["sc_gmax"], o, o, t1, t1,
+                                      vis, has_instances=True,
+                                      has_motion=True)
     assert k6.fits(16) and k6.fits(128)
     assert not k6.fits(129) and not k6.fits(0)
     # 512 superclusters and one group's bounds fit one warp's shared memory
